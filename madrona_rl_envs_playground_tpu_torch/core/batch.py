@@ -1,0 +1,81 @@
+"""Batched simulator driver: reset and step N worlds in lockstep.
+
+Counterpart of ``madrona_rl_envs_playground_tpu/core/batch.py``.  An env here
+works on the whole batch at once (``init_core``, ``transition`` and
+``encode`` take and return tensors with a leading N axis), so there is no
+``vmap``.  Two semantics carry over:
+
+* the auto-reset happens inside the step, and the encode runs after it, so a
+  world that is done this step reports the fresh episode's observation;
+* the episode counter is a uint32 that advances by ``sum(done)``; world w of
+  the batch is handed index ``counter + (number of done worlds before w)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .rng import _MASK32
+from .types import BatchState, StepOutput
+
+
+def select_state(done: torch.Tensor, a, b):
+    """Field-wise ``where(done, a, b)`` over two batched state dataclasses."""
+
+    def sel(x, y):
+        d = done.reshape(done.shape + (1,) * (x.dim() - 1))
+        return torch.where(d, x, y)
+
+    return type(a)(**{f.name: sel(getattr(a, f.name), getattr(b, f.name))
+                      for f in dataclasses.fields(a)})
+
+
+def batched_reset(env, num_envs: int, start_episode: int = 0,
+                  device: DeviceLike = None) -> Tuple[BatchState, StepOutput]:
+    """Construct N worlds; world w gets episode index ``start_episode + w``."""
+    dev = resolve_device(device)
+    eps = (torch.arange(num_envs, dtype=torch.int64, device=dev)
+           + start_episode) & _MASK32
+    states = env.init_core(eps)
+    just_reset = torch.ones(num_envs, dtype=torch.bool, device=dev)
+    states, obs, state_obs, mask, active = env.encode(states, just_reset)
+    out = StepOutput(
+        obs=obs,
+        state_obs=state_obs,
+        action_mask=mask,
+        active=active,
+        reward=torch.zeros((num_envs, env.num_agents), dtype=env.reward_dtype,
+                           device=dev),
+        done=torch.zeros(num_envs, dtype=torch.bool, device=dev),
+    )
+    counter = torch.tensor((start_episode + num_envs) & _MASK32,
+                           dtype=torch.int64, device=dev)
+    return BatchState(env_states=states, episode_counter=counter), out
+
+
+def batched_step(env, bstate: BatchState,
+                 actions: torch.Tensor) -> Tuple[BatchState, StepOutput]:
+    """One lockstep step of all worlds with in-step auto-reset.
+
+    actions: int [N, P].
+    """
+    s2, reward, done = env.transition(bstate.env_states, actions)
+
+    # episode indices in world order (the reference's fetch_add sequence)
+    done_i = done.to(torch.int64)
+    rank = torch.cumsum(done_i, 0) - done_i
+    eps = (bstate.episode_counter + rank) & _MASK32
+    counter2 = (bstate.episode_counter + done_i.sum()) & _MASK32
+
+    fresh = env.init_core(eps)
+    s3 = select_state(done, fresh, s2)
+    s4, obs, state_obs, mask, active = env.encode(s3, done)
+
+    out = StepOutput(obs=obs, state_obs=state_obs, action_mask=mask,
+                     active=active, reward=reward, done=done)
+    return BatchState(env_states=s4, episode_counter=counter2), out
+

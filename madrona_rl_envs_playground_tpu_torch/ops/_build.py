@@ -1,0 +1,93 @@
+"""Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes
+``build/kernels/lib<name>_<digest>.so`` at the repo root, where ``<digest>``
+hashes the source and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing is built at import time: the first
+wrapper call that launches a kernel builds it (``build_all`` builds several
+sources at once, one ``nvcc`` process each).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       f"the kernels in {CSRC}")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns the
+    process (or None) and the paths it writes."""
+    out = library_path(name)
+    if out.exists():
+        return None, out, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+    log = out.with_suffix(".log")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+    return proc, out, tmp
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Build every named source, all ``nvcc`` processes at once; returns the
+    library paths.  Raises with the compiler's log if one fails."""
+    started = {n: _start(n) for n in names}
+    # wait for every nvcc before reporting a failure, so none outlives us
+    codes = {n: proc.wait() for n, (proc, _, _) in started.items() if proc is not None}
+    paths = {}
+    for name, (proc, out, tmp) in started.items():
+        if proc is not None:
+            if codes[name] != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n"
+                                   + out.with_suffix(".log").read_text())
+            os.replace(tmp, out)
+        paths[name] = out
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            _LIBS[name] = lib
+        return lib
+
+
+def build_log(name: str) -> str:
+    """What nvcc and ptxas printed for the current build of ``name``."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
