@@ -1,0 +1,341 @@
+// Balance Beam step kernels for Hopper (sm_90a), bound through a plain C
+// interface and loaded with ctypes (ops/balance.py).
+//
+// K7 `bb_step_kernel` + `bb_reset_kernel` replace the per-step Pallas kernel
+//   madrona_rl_envs_playground_tpu/ops/balance_pallas.py::_build_kernel
+//   (body _make_step2, launched by fused_step): the move, the rolling obs
+//   history, the reward (colocation, distance, fall-off), termination, the
+//   world-order episode index of every world that resets and its TEA+LCG
+//   reset draw (2 positions).  One fused_step is these two launches, split
+//   as in csrc/cartpole.cu: step and count, then rank and reset.
+// K8 `bb_rollout_kernel` replaces the persistent rollout Pallas kernels
+//   ops/balance_pallas.py::_build_rollout_kernel and
+//   _build_rollout_kernel_packed (fused_rollout): T steps in one cooperative
+//   launch with per-(world, seat) LCG actions (a = (u24 * 4) >> 24 of bits
+//   8..31 of the advanced word), a per-world done count and checksum
+//   ((checksum + f32(sum of the 14 obs values)) + reward) + f32(done) after
+//   every step.  Episodes are allocated per step in whole-batch world order,
+//   as in csrc/cartpole.cu's K6 (one grid-wide sync per step), so the
+//   checksums equal JAX's fused_rollout with one block (block == N) and
+//   differ from JAX's at bench.py's block of 16,384.
+//
+// Layout.  Env-major, the layout the policy reads: loc [N, 2], obs
+// [N, 2, 7] (seat-major per world), time [N] and the episode LCG word [N],
+// all int32; the reward is f32 [N] (both seats get it).  The per-step
+// actions are [N, 2] int32, as the sampler draws them; the rollout's action
+// words are [2, N], as JAX's init_action_rng lays them out.  Worlds are
+// assigned to blocks and slots as in csrc/cartpole.cu.
+//
+// What bounds them on an H100.  K7 moves 157 B per world-step (80 B read,
+// 77 B written) for about 60 integer operations, so device-memory bytes
+// bound it.  K8 reads and writes each world once per launch and does its
+// operations T times; its 92 B of carry per world (88 MB at 1M worlds) fits
+// neither the register file nor the L2, so each step streams it through
+// device memory, and the grid-wide sync per step adds to that.
+
+#include <cooperative_groups.h>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "episode_scan.cuh"
+
+namespace cg = cooperative_groups;
+using episode::THREADS;
+using episode::world;
+
+namespace {
+
+constexpr int NUM_SPACES = 5;
+constexpr int TIME = 3;
+constexpr int BUFFER = 2;
+constexpr int OBS = 2 * (2 * TIME + 1);  // 14 ints per world
+constexpr float SCALE = 0x1.99999ap-3f;   // float32(0.2)
+
+struct Beam {
+  int l0, l1, t;
+  int obs[OBS];
+};
+
+__device__ __forceinline__ Beam load(const int2* loc, const int2* obs, const int32_t* time,
+                                     int n) {
+  Beam b;
+  const int2 l = loc[n];
+  b.l0 = l.x;
+  b.l1 = l.y;
+  b.t = time[n];
+#pragma unroll
+  for (int k = 0; k < OBS / 2; ++k) {
+    const int2 o = obs[(size_t)n * (OBS / 2) + k];
+    b.obs[2 * k] = o.x;
+    b.obs[2 * k + 1] = o.y;
+  }
+  return b;
+}
+
+__device__ __forceinline__ void store(int2* loc, int2* obs, int32_t* time, int n,
+                                      const Beam& b) {
+  loc[n] = make_int2(b.l0, b.l1);
+  time[n] = b.t;
+#pragma unroll
+  for (int k = 0; k < OBS / 2; ++k)
+    obs[(size_t)n * (OBS / 2) + k] = make_int2(b.obs[2 * k], b.obs[2 * k + 1]);
+}
+
+__device__ __forceinline__ int move(int a) {
+  return a == 0 ? -2 : a == 1 ? -1 : a == 2 ? 1 : 2;  // MOVES = [-2, -1, 1, 2]
+}
+
+// One step; sets the reward and returns done.  Semantics:
+// envs/balance_beam.py (both packages).
+__device__ __forceinline__ bool transition(Beam& b, int a0, int a1, float* rew) {
+  const int l0 = b.l0 + move(a0), l1 = b.l1 + move(a1);
+  const int t = b.t - 1;
+  const int diff = l0 - l1;
+  float r = diff == 0 ? 1.0f : __fmul_rn(-(float)abs(diff), SCALE);
+  const bool off = l0 < 0 || l0 >= NUM_SPACES || l1 < 0 || l1 >= NUM_SPACES;
+  if (off) r = __fmul_rn(__fmul_rn(-(float)NUM_SPACES, (float)(t + 1)), SCALE);
+  *rew = r;
+  // rolling history: shift both 3-slots down, write own / partner and time
+  int o[OBS];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int r0 = p * (2 * TIME + 1);
+    o[r0] = (p == 0 ? l0 : l1) + BUFFER;
+    o[r0 + 1] = b.obs[r0];
+    o[r0 + 2] = b.obs[r0 + 1];
+    o[r0 + 3] = (p == 0 ? l1 : l0) + BUFFER;
+    o[r0 + 4] = b.obs[r0 + 3];
+    o[r0 + 5] = b.obs[r0 + 4];
+    o[r0 + 6] = t;
+  }
+  b.l0 = l0;
+  b.l1 = l1;
+  b.t = t;
+#pragma unroll
+  for (int k = 0; k < OBS; ++k) b.obs[k] = o[k];
+  return off || t == 0;
+}
+
+// The fresh episode `idx`: TEA seed, then two positions int(5 * rand()).
+__device__ __forceinline__ Beam fresh(uint32_t idx, uint32_t* word) {
+  const uint32_t v1 = episode::lcg_next(episode::tea_seed(idx));
+  const uint32_t v2 = episode::lcg_next(v1);
+  Beam b;
+  b.l0 = (int)__fmul_rn((float)NUM_SPACES, episode::unif(v1));
+  b.l1 = (int)__fmul_rn((float)NUM_SPACES, episode::unif(v2));
+  b.t = TIME - 1;
+#pragma unroll
+  for (int k = 0; k < OBS; ++k) b.obs[k] = 0;
+  b.obs[0] = b.l0 + BUFFER;
+  b.obs[3] = b.l1 + BUFFER;
+  b.obs[6] = b.t;
+  b.obs[7] = b.l1 + BUFFER;
+  b.obs[10] = b.l0 + BUFFER;
+  b.obs[13] = b.t;
+  *word = v2;
+  return b;
+}
+
+__device__ __forceinline__ float obs_sum(const Beam& b) {
+  uint32_t s = 0u;  // int32 sum, wrapping as JAX's
+#pragma unroll
+  for (int k = 0; k < OBS; ++k) s += (uint32_t)b.obs[k];
+  return (float)(int32_t)s;
+}
+
+__device__ __forceinline__ int action(uint32_t w) {
+  return (int)((((w >> 8) & 0x00FFFFFFu) * 4u) >> 24);
+}
+
+// ---- K7 ---------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+bb_step_kernel(const int2* __restrict__ loc_in, const int2* __restrict__ obs_in,
+               const int32_t* __restrict__ time_in, const int2* __restrict__ act,
+               int2* __restrict__ loc_out, int2* __restrict__ obs_out,
+               int32_t* __restrict__ time_out, float* __restrict__ rew_out,
+               bool* __restrict__ done_out, int* __restrict__ totals, int N, int slots) {
+  int count = 0;
+  for (int s = 0; s < slots; ++s) {
+    const int n = world(slots, s);
+    bool done = false;
+    if (n < N) {
+      Beam b = load(loc_in, obs_in, time_in, n);
+      const int2 a = act[n];
+      float r;
+      done = transition(b, a.x, a.y, &r);
+      store(loc_out, obs_out, time_out, n, b);  // the reset kernel overwrites the done worlds
+      rew_out[n] = r;
+      done_out[n] = done;
+    }
+    count += __syncthreads_count(done);
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = count;
+}
+
+__global__ void __launch_bounds__(THREADS)
+bb_reset_kernel(const bool* __restrict__ done_in, const int32_t* __restrict__ rng_in,
+                const int64_t* __restrict__ cnt_in, const int* __restrict__ totals,
+                int2* __restrict__ loc_out, int2* __restrict__ obs_out,
+                int32_t* __restrict__ time_out, int32_t* __restrict__ rng_out,
+                int64_t* __restrict__ cnt_out, int N, int slots) {
+  __shared__ int smem[episode::SCAN_SMEM_INTS];
+  uint32_t before, unused;
+  episode::block_offsets(totals, blockIdx.x, blockIdx.x, smem, &before, &unused);
+  uint32_t next = (uint32_t)cnt_in[0] + before;  // index of the next reset
+  for (int s = 0; s < slots; ++s) {
+    const int n = world(slots, s);
+    const bool done = n < N && done_in[n];
+    int total;
+    const int rank = episode::block_rank(done, smem, &total);
+    if (done) {
+      uint32_t w;
+      store(loc_out, obs_out, time_out, n, fresh(next + (uint32_t)rank, &w));
+      rng_out[n] = (int32_t)w;
+    } else if (n < N) {
+      rng_out[n] = rng_in[n];
+    }
+    next += (uint32_t)total;
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) cnt_out[0] = (int64_t)next;
+}
+
+// ---- K8 ---------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+bb_rollout_kernel(const int2* __restrict__ loc_in, const int2* __restrict__ obs_in,
+                  const int32_t* __restrict__ time_in, const int32_t* __restrict__ rng_in,
+                  const int32_t* __restrict__ arng_in, const int64_t* __restrict__ cnt_in,
+                  int2* __restrict__ loc, int2* __restrict__ obs, int32_t* __restrict__ time,
+                  int32_t* __restrict__ rng, int32_t* __restrict__ arng,
+                  int32_t* __restrict__ dcnt, float* __restrict__ chk,
+                  int64_t* __restrict__ cnt_out, float* __restrict__ rew_done,
+                  int* __restrict__ totals, int N, int T, int slots) {
+  __shared__ int smem[episode::SCAN_SMEM_INTS];
+  cg::grid_group grid = cg::this_grid();
+  const int G = gridDim.x;
+  // the outputs are the working state, each world touched only by its owner
+  for (int s = 0; s < slots; ++s) {
+    const int n = world(slots, s);
+    if (n < N) {
+      store(loc, obs, time, n, load(loc_in, obs_in, time_in, n));
+      rng[n] = rng_in[n];
+      arng[n] = arng_in[n];
+      arng[N + n] = arng_in[N + n];
+      dcnt[n] = 0;
+      chk[n] = 0.0f;
+    }
+  }
+  uint32_t base = (uint32_t)cnt_in[0];
+  for (int t = 0; t < T; ++t) {
+    int* step_totals = totals + (t & 1) * G;
+    // phase A: actions, step, done; live worlds are final for this step
+    uint32_t dmask = 0u;
+    int count = 0;
+    for (int s = 0; s < slots; ++s) {
+      const int n = world(slots, s);
+      bool done = false;
+      if (n < N) {
+        const uint32_t w0 = episode::lcg_next((uint32_t)arng[n]);
+        const uint32_t w1 = episode::lcg_next((uint32_t)arng[N + n]);
+        arng[n] = (int32_t)w0;
+        arng[N + n] = (int32_t)w1;
+        Beam b = load(loc, obs, time, n);
+        float r;
+        done = transition(b, action(w0), action(w1), &r);
+        if (done) {
+          rew_done[n] = r;  // phase B adds it after the fresh obs
+        } else {
+          store(loc, obs, time, n, b);
+          chk[n] = __fadd_rn(__fadd_rn(__fadd_rn(chk[n], obs_sum(b)), r), 0.0f);
+        }
+        dcnt[n] += done;
+      }
+      dmask |= (uint32_t)done << s;
+      count += __syncthreads_count(done);
+    }
+    if (threadIdx.x == 0) step_totals[blockIdx.x] = count;
+    grid.sync();  // parity buffers: one sync a step (see csrc/cartpole.cu)
+    // phase B: rank this step's resets over the whole batch and draw them
+    uint32_t before, all;
+    episode::block_offsets(step_totals, blockIdx.x, G, smem, &before, &all);
+    uint32_t next = base + before;
+    for (int s = 0; s < slots; ++s) {
+      const int n = world(slots, s);
+      const bool done = (dmask >> s) & 1u;
+      int total;
+      const int rank = episode::block_rank(done, smem, &total);
+      if (done) {
+        uint32_t w;
+        const Beam b = fresh(next + (uint32_t)rank, &w);
+        store(loc, obs, time, n, b);
+        rng[n] = (int32_t)w;
+        chk[n] = __fadd_rn(__fadd_rn(__fadd_rn(chk[n], obs_sum(b)), rew_done[n]), 1.0f);
+      }
+      next += (uint32_t)total;
+    }
+    base += all;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) cnt_out[0] = (int64_t)base;
+}
+
+}  // namespace
+
+extern "C" {
+
+int bb_scratch_ints(int N) { return episode::scratch_ints(N); }
+
+int bb_step(const int32_t* loc_in, const int32_t* obs_in, const int32_t* time_in,
+            const int32_t* rng_in, const int32_t* act, const int64_t* cnt_in,
+            int32_t* loc_out, int32_t* obs_out, int32_t* time_out, int32_t* rng_out,
+            float* rew, bool* done, int64_t* cnt_out, int* scratch, int N, int device,
+            void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int max_blocks = 0, blocks = 0, slots = 0;
+  err = episode::resident_blocks((const void*)bb_step_kernel, device, &max_blocks);
+  if (err != cudaSuccess) return (int)err;
+  episode::split(N, max_blocks, &blocks, &slots);
+  cudaStream_t s = (cudaStream_t)stream;
+  int2* loc2 = reinterpret_cast<int2*>(loc_out);
+  int2* obs2 = reinterpret_cast<int2*>(obs_out);
+  bb_step_kernel<<<blocks, THREADS, 0, s>>>(
+      reinterpret_cast<const int2*>(loc_in), reinterpret_cast<const int2*>(obs_in), time_in,
+      reinterpret_cast<const int2*>(act), loc2, obs2, time_out, rew, done, scratch, N, slots);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bb_reset_kernel<<<blocks, THREADS, 0, s>>>(done, rng_in, cnt_in, scratch, loc2, obs2,
+                                             time_out, rng_out, cnt_out, N, slots);
+  return (int)cudaGetLastError();
+}
+
+int bb_rollout(const int32_t* loc_in, const int32_t* obs_in, const int32_t* time_in,
+               const int32_t* rng_in, const int32_t* arng_in, const int64_t* cnt_in,
+               int32_t* loc, int32_t* obs, int32_t* time, int32_t* rng, int32_t* arng,
+               int32_t* dcnt, float* chk, int64_t* cnt_out, float* rew_done, int* scratch,
+               int N, int T, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int max_blocks = 0, blocks = 0, slots = 0;
+  err = episode::resident_blocks((const void*)bb_rollout_kernel, device, &max_blocks);
+  if (err != cudaSuccess) return (int)err;
+  episode::split(N, max_blocks, &blocks, &slots);
+  if (slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
+  const int2* loc_in2 = reinterpret_cast<const int2*>(loc_in);
+  const int2* obs_in2 = reinterpret_cast<const int2*>(obs_in);
+  int2* loc2 = reinterpret_cast<int2*>(loc);
+  int2* obs2 = reinterpret_cast<int2*>(obs);
+  void* args[] = {(void*)&loc_in2, (void*)&obs_in2, (void*)&time_in, (void*)&rng_in,
+                  (void*)&arng_in, (void*)&cnt_in,  (void*)&loc2,    (void*)&obs2,
+                  (void*)&time,    (void*)&rng,     (void*)&arng,    (void*)&dcnt,
+                  (void*)&chk,     (void*)&cnt_out, (void*)&rew_done, (void*)&scratch,
+                  (void*)&N,       (void*)&T,       (void*)&slots};
+  err = cudaLaunchCooperativeKernel((const void*)bb_rollout_kernel, dim3(blocks), dim3(THREADS),
+                                    args, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+const char* bb_error_string(int err) { return episode::error_string(err); }
+
+}  // extern "C"

@@ -1,6 +1,7 @@
-"""The port's batch simulators (Overcooked so far)."""
+"""The port's batch simulators."""
 
-from . import overcooked, overcooked2
+from . import balance_beam, cartpole, overcooked, overcooked2
 from .layouts import LAYOUTS, get_base_layout_params
 
-__all__ = ["overcooked", "overcooked2", "LAYOUTS", "get_base_layout_params"]
+__all__ = ["balance_beam", "cartpole", "overcooked", "overcooked2", "LAYOUTS",
+           "get_base_layout_params"]

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes
 ``build/kernels/lib<name>_<digest>.so`` at the repo root, where ``<digest>``
-hashes the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing is built at import time: the first
-wrapper call that launches a kernel builds it (``build_all`` builds several
-sources at once, one ``nvcc`` process each).
+hashes the source, every shared header ``csrc/*.cuh`` and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing is built at import time: the first wrapper call that launches a
+kernel builds it (``build_all`` builds several sources at once, one ``nvcc``
+process each).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -40,9 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -85,6 +90,22 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _LIBS[name] = lib
         return lib
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device, align: int = 16) -> None:
+    """What a kernel takes: ``t`` on ``device`` with this dtype and shape,
+    contiguous, and starting on an ``align``-byte boundary (16 for the
+    kernels' vector loads)."""
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary")
 
 
 def build_log(name: str) -> str:

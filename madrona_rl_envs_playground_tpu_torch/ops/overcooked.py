@@ -210,25 +210,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_state(env: OvercookedEnv, ts: TState) -> int:
     _require_fused(env)
     N = ts.timestep.shape[0] if ts.timestep.dim() == 1 else -1
     if N <= 0:
         raise ValueError(f"timestep must be a non-empty [N] tensor, got {tuple(ts.timestep.shape)}")
     dev = ts.rows.device
-    _check(ts.rows, "rows", torch.int8, (num_rows(env), N), dev)
-    _check(ts.timestep, "timestep", torch.int32, (N,), dev)
+    _build.check_tensor(ts.rows, "rows", torch.int8, (num_rows(env), N), dev, align=1)
+    _build.check_tensor(ts.timestep, "timestep", torch.int32, (N,), dev, align=4)
     return N
 
 
@@ -242,7 +231,7 @@ def _fused_step_cuda(env: OvercookedEnv, ts: TState, actions_t: torch.Tensor):
     N = _check_state(env, ts)
     dev = ts.rows.device
     P = env.num_players
-    _check(actions_t, "actions_t", torch.int32, (P, N), dev)
+    _build.check_tensor(actions_t, "actions_t", torch.int32, (P, N), dev, align=4)
     rows = torch.empty_like(ts.rows)
     tstep = torch.empty_like(ts.timestep)
     obs = torch.empty((N, P, env.obs_size), dtype=torch.int8, device=dev)
@@ -264,7 +253,7 @@ def _fused_rollout_cuda(env: OvercookedEnv, ts: TState, act_rng: torch.Tensor,
                         num_steps: int):
     N = _check_state(env, ts)
     dev = ts.rows.device
-    _check(act_rng, "act_rng", torch.int32, (env.num_players, N), dev)
+    _build.check_tensor(act_rng, "act_rng", torch.int32, (env.num_players, N), dev, align=4)
     if env.num_actions != 6:
         raise ValueError("the rollout kernel draws from 6 actions")
     rows = torch.empty_like(ts.rows)

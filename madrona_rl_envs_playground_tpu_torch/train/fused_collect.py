@@ -1,27 +1,34 @@
-"""Kernel-backed rollout collection for the trainers (Overcooked so far).
+"""Kernel-backed rollout collection for the trainers.
 
 Counterpart of ``madrona_rl_envs_playground_tpu/train/fused_collect.py``
-(``_overcooked_collect``).  A collector holds three functions:
+(``_overcooked_collect``, ``_cartpole_collect``, ``_balance_collect``).  A
+collector holds three functions:
 
 * ``pack(bstate) -> carry``: env-major ``BatchState`` -> the kernel layout;
 * ``step(carry, actions [N, P]) -> (carry', StepOutput)``: one step through
-  ``ops.overcooked.fused_step`` (K1 on the card, its plain version on the
+  the env's ``fused_step`` (its kernel on the card, its plain version on the
   CPU), with a ``StepOutput`` equal to ``batched_step``'s;
 * ``unpack(carry) -> bstate``.
 
-Pack and unpack run once per rollout, not once per step.
+Pack and unpack run once per rollout, not once per step.  The episode
+counter stays a uint32 in an int64 scalar tensor on the device, wrapping at
+2^32 as ``core/batch.py``'s does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from ..core.rng import _MASK32
 from ..core.types import BatchState, StepOutput
 from ..device import DeviceLike, resolve_device
+from ..envs import balance_beam, cartpole
+from ..envs.overcooked_base import OvercookedEnv
+from ..ops import balance as bp
+from ..ops import cartpole as cp
 from ..ops import overcooked as ok
 
 
@@ -32,15 +39,28 @@ class FusedCollect:
     unpack: Callable[[Any], BatchState]
 
 
-def make_fused_collect(env, num_envs: int, device: DeviceLike = None) -> FusedCollect:
-    """The Overcooked collector on ``device`` (default ``"cuda"``).  Raises
-    for an env outside the kernels' envelope."""
+def make_fused_collect(env, num_envs: int, device: DeviceLike = None) -> Optional[FusedCollect]:
+    """The env's collector on ``device`` (default ``"cuda"``), or None where
+    no kernel applies (an Overcooked layout outside the kernels' envelope)."""
     dev = resolve_device(device)
-    ok._require_fused(env)
-    P, A = env.num_players, env.num_actions
-    # all-ones masks and active flags: Overcooked never masks
-    mask = torch.ones((num_envs, P, A), dtype=torch.bool, device=dev)
-    active = torch.ones((num_envs, P), dtype=torch.bool, device=dev)
+    if isinstance(env, OvercookedEnv):
+        return _overcooked_collect(env, num_envs, dev) if ok.fused_supported(env) else None
+    if isinstance(env, cartpole.Env):
+        return _cartpole_collect(env, num_envs, dev)
+    if isinstance(env, balance_beam.Env):
+        return _balance_collect(env, num_envs, dev)
+    return None
+
+
+def _constant_outputs(env, num_envs: int, dev: torch.device):
+    """All-ones masks and active flags: these envs never mask."""
+    P, A = env.num_agents, env.num_actions
+    return (torch.ones((num_envs, P, A), dtype=torch.bool, device=dev),
+            torch.ones((num_envs, P), dtype=torch.bool, device=dev))
+
+
+def _overcooked_collect(env, num_envs: int, dev: torch.device) -> FusedCollect:
+    mask, active = _constant_outputs(env, num_envs, dev)
 
     def pack(bstate: BatchState):
         return ok.pack_state(env, bstate.env_states), bstate.episode_counter
@@ -59,5 +79,49 @@ def make_fused_collect(env, num_envs: int, device: DeviceLike = None) -> FusedCo
         ts, counter = carry
         return BatchState(env_states=ok.unpack_state(env, ts),
                           episode_counter=counter)
+
+    return FusedCollect(pack=pack, step=step, unpack=unpack)
+
+
+def _cartpole_collect(env, num_envs: int, dev: torch.device) -> FusedCollect:
+    mask, active = _constant_outputs(env, num_envs, dev)
+    reward = torch.ones((num_envs, 1), dtype=torch.float32, device=dev)
+
+    def pack(bstate: BatchState):
+        return cp.pack_state(bstate.env_states), bstate.episode_counter
+
+    def step(carry, actions: torch.Tensor):
+        ts, counter = carry
+        ts2, done, counter = cp.fused_step(ts, counter, actions.to(torch.int32).contiguous())
+        obs = ts2.st.view(num_envs, 1, 4)  # the state is the obs
+        out = StepOutput(obs=obs, state_obs=obs, action_mask=mask,
+                         active=active, reward=reward, done=done)
+        return (ts2, counter), out
+
+    def unpack(carry):
+        ts, counter = carry
+        return BatchState(env_states=cp.unpack_state(ts), episode_counter=counter)
+
+    return FusedCollect(pack=pack, step=step, unpack=unpack)
+
+
+def _balance_collect(env, num_envs: int, dev: torch.device) -> FusedCollect:
+    mask, active = _constant_outputs(env, num_envs, dev)
+
+    def pack(bstate: BatchState):
+        return bp.pack_state(bstate.env_states), bstate.episode_counter
+
+    def step(carry, actions: torch.Tensor):
+        ts, counter = carry
+        ts2, rew, done, counter = bp.fused_step(ts, counter,
+                                                actions.to(torch.int32).contiguous())
+        out = StepOutput(obs=ts2.obs, state_obs=ts2.obs, action_mask=mask,
+                         active=active, reward=rew[:, None].expand(num_envs, 2),
+                         done=done)
+        return (ts2, counter), out
+
+    def unpack(carry):
+        ts, counter = carry
+        return BatchState(env_states=bp.unpack_state(ts), episode_counter=counter)
 
     return FusedCollect(pack=pack, step=step, unpack=unpack)

@@ -7,7 +7,7 @@ reference's centralized self-play drivers
 phases, kept separable as in JAX:
 
 1. ``_rollout``: ``num_steps`` steps of policy forward, sampling and env
-   step (through the collector's kernel for layouts inside its envelope);
+   step (through the collector's kernel where the env has one);
 2. ``_advantage``: bootstrap value, GAE, advantage normalisation and the
    minibatch chunks (bands of the T axis, in order, no shuffle);
 3. ``_update``: ``update_epochs`` passes over the chunks with the PPO loss,
@@ -28,7 +28,6 @@ from ..core.batch import batched_reset, batched_step
 from ..device import DeviceLike, resolve_device
 from ..models.cleanrl import CleanRLNetwork
 from ..models.common import dist_entropy, dist_log_prob, dist_sample
-from ..ops import overcooked as ok
 from .cleanrl_ppo import plain_gae
 from .fused_collect import make_fused_collect
 
@@ -84,10 +83,10 @@ class SelfPlayPPO:
             generator=init_gen).to(self.device)
         self.opt = torch.optim.Adam(self.net.parameters(), lr=cfg.lr, eps=1e-5)
         self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
-        # layouts inside the kernels' envelope step through K1; the rest
-        # (many_player_layout-scale grids) only have the plain env
-        self._fused = (make_fused_collect(env, num_envs, self.device)
-                       if ok.fused_supported(env) else None)
+        # envs with a step kernel (Overcooked layouts inside its envelope,
+        # Cartpole, Balance Beam) step through it; the rest (e.g.
+        # many_player_layout-scale grids) only have the plain env
+        self._fused = make_fused_collect(env, num_envs, self.device)
         bstate, out = batched_reset(env, num_envs, device=self.device)
         self.state = {"bstate": bstate, "out": out}
 

@@ -59,13 +59,33 @@ def test_port_sources_import_no_jax():
                                    "madrona_rl_envs_playground_tpu"}, f"{f}: {line}"
 
 
-def test_kernels_build_from_csrc_into_an_ignored_directory():
+def test_kernels_build_from_csrc_into_an_ignored_directory(tmp_path, monkeypatch):
+    """Each source builds into the ignored build/kernels/, named by a digest
+    of the source, the shared headers and the flags: an edited header
+    (csrc/episode_scan.cuh) changes every library's path, so no stale
+    library is loaded."""
+    import shutil
+
     from madrona_rl_envs_playground_tpu_torch.ops import _build
 
-    lib = _build.library_path("overcooked")
-    assert (_build.CSRC / "overcooked.cu").is_file()
-    assert lib.parent == REPO / "build" / "kernels"
+    names = ("overcooked", "cartpole", "balance")
+    for name in names:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+        assert _build.library_path(name).parent == REPO / "build" / "kernels"
+    assert (_build.CSRC / "episode_scan.cuh").is_file()
     assert "build/" in (REPO / ".gitignore").read_text().splitlines()
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in names}
+    assert before == {n: _build.library_path(n) for n in names}  # stable
+    header = csrc / "episode_scan.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert all(_build.library_path(n) != after[n] for n in names)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

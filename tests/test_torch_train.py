@@ -112,21 +112,13 @@ def _trainers(value_loss="clipped_mse", num_envs=4, T=8, epochs=2, nmb=2):
     return jt, tt
 
 
-@pytest.fixture(scope="module")
-def jax_rollout():
-    """JAX ``_rollout`` with its sampler replaced by injected actions, shared
-    by the tests below.  The sampler finds the step by matching the key it
-    is handed against the rollout's known chain of ``split`` keys, so the
-    rollout still runs as one jitted scan.  Returns (actions [T, N, P],
-    bstate, out, trajectory)."""
-    jt, _ = _trainers()
-    T, N, P = 8, 4, 2
-    rs = np.random.RandomState(4)
-    acts = rs.choice(6, size=(T, N, P), p=[.15, .15, .15, .15, .05, .35]).astype(np.int32)
-    # env 0 scripted: player 0 fetches an onion and puts it in the pot (a
-    # placement reward at step 5); player 1 stays
-    acts[:6, 0, 0] = [0, 3, 5, 2, 0, 5]
-    acts[:6, 0, 1] = 4
+def jax_rollout_injected(jt, acts):
+    """JAX ``_rollout`` of trainer ``jt`` with its sampler replaced by the
+    injected actions ``acts`` ([T, N, P] int32).  The sampler finds the step
+    by matching the key it is handed against the rollout's known chain of
+    ``split`` keys, so the rollout still runs as one jitted scan.  Returns
+    (bstate, out, trajectory)."""
+    T, N, P = acts.shape
     key, step_keys = jt.state["key"], []
     for _ in range(T):
         key, ak = jax.random.split(key)
@@ -144,7 +136,22 @@ def jax_rollout():
         bstate, out, _, tr = jax.jit(jt._rollout)(jt.state)
     finally:
         j_selfplay.dist_sample = real
-    return acts, bstate, out, tr
+    return bstate, out, tr
+
+
+@pytest.fixture(scope="module")
+def jax_rollout():
+    """The JAX rollout of ``_trainers()`` with injected actions, shared by
+    the tests below.  Returns (actions [T, N, P], bstate, out, trajectory)."""
+    jt, _ = _trainers()
+    T, N, P = 8, 4, 2
+    rs = np.random.RandomState(4)
+    acts = rs.choice(6, size=(T, N, P), p=[.15, .15, .15, .15, .05, .35]).astype(np.int32)
+    # env 0 scripted: player 0 fetches an onion and puts it in the pot (a
+    # placement reward at step 5); player 1 stays
+    acts[:6, 0, 0] = [0, 3, 5, 2, 0, 5]
+    acts[:6, 0, 1] = 4
+    return (acts,) + jax_rollout_injected(jt, acts)
 
 
 def test_rollout_matches_jax_with_injected_actions(jax_rollout):
@@ -169,6 +176,14 @@ def test_rollout_matches_jax_with_injected_actions(jax_rollout):
 def test_one_update_matches_jax(value_loss, jax_rollout):
     _, _, j_out, j_tr = jax_rollout
     jt, tt = _trainers(value_loss)
+    assert_update_matches_jax(jt, tt, j_tr, j_out)
+
+
+def assert_update_matches_jax(jt, tt, j_tr, j_out, loss_atol=1e-7):
+    """One PPO update of the port's ``tt`` on the JAX trajectory ``j_tr``
+    against the JAX trainer ``jt``'s: advantages, returns, stats, the last
+    epoch's losses (``rtol 1e-4``, ``atol loss_atol``) and every parameter
+    delta."""
     params0 = jt.state["params"]
     chunks, j_stats = jt._advantage(params0, j_tr, j_out)
     params1, _, auxes = jt._update(params0, jt.state["opt_state"], chunks)
@@ -186,13 +201,13 @@ def test_one_update_matches_jax(value_loss, jax_rollout):
         _close(t_stats[k], j_stats[k])
     t_aux = tt._update(t_chunks)
     for name, t_v, j_v in zip(("pg_loss", "v_loss", "entropy", "approx_kl"), t_aux, auxes):
-        np.testing.assert_allclose(float(t_v), float(j_v[-1]), rtol=1e-4, atol=1e-7,
+        np.testing.assert_allclose(float(t_v), float(j_v[-1]), rtol=1e-4, atol=loss_atol,
                                    err_msg=name)
 
     j0, j1 = _np_params(params0)["params"], _np_params(params1)["params"]
     after = tt.net.state_dict()
     for tower in ("actor", "critic"):
-        for i in range(2):
+        for i in range(len(tt.net.actor.layers)):
             for leaf, key in (("kernel", "weight"), ("bias", "bias")):
                 j_delta = j1[tower][f"Dense_{i}"][leaf] - j0[tower][f"Dense_{i}"][leaf]
                 tk = f"{tower}.layers.{i}.{key}"
@@ -232,3 +247,20 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
             build()
     # asking for the CPU is the only way onto it
     assert t_selfplay.SelfPlayPPO(env, 2, cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name,has_kernel", [
+    ("cramped_room", True), ("many_player_layout", False), ("cartpole", True),
+    ("balance", True)])
+def test_trainer_picks_the_collector_by_env(name, has_kernel):
+    """Envs with a step kernel get a collector; an Overcooked grid outside
+    the kernels' envelope steps through the plain env, as in JAX."""
+    from madrona_rl_envs_playground_tpu_torch.envs import balance_beam, cartpole
+
+    env = {"cartpole": cartpole.Env, "balance": balance_beam.Env}.get(
+        name, lambda: t_oc.make(name, horizon=6, num_players=6 if "many" in name else None))()
+    cfg = t_selfplay.SelfPlayConfig(num_steps=2, hidden=8, num_layers=1)
+    tr = t_selfplay.SelfPlayPPO(env, 2, cfg, device="cpu")
+    assert (tr._fused is not None) == has_kernel
+    m = tr.train_step()
+    assert all(torch.isfinite(v) for v in m.values())
