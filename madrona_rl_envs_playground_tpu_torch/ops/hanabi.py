@@ -1,0 +1,397 @@
+"""Hanabi step, rollout and legal-move kernels and their plain PyTorch versions.
+
+Counterpart of ``madrona_rl_envs_playground_tpu/ops/hanabi_megakernel.py``
+and ``ops/hanabi_pallas.py``.  Three kernels, in ``csrc/hanabi.cu``, for the
+2-player configs (``fused_supported``; games of more players run on the
+plain env):
+
+* **K3** ``fused_step``: one game step per env (move resolution, the
+  random-swap draw, termination, the world-order episode index of each
+  reset and its closed-form deal, and the obs / own-hand / mask encodes of
+  the refreshed seats, the other seats' bytes kept), as two launches: step
+  and count, then rank, deal and encode;
+* **K4** ``fused_rollout``: T steps in one cooperative launch, each env's
+  action drawn uniformly over the active seat's legal moves from a per-env
+  LCG (``action_from_mask`` replays the draw), a per-env done count and the
+  checksum ``chk += P * reward + done + (sum of every seat's obs, own and
+  mask bytes)`` after every step;
+* **K11** ``legal_moves``: every seat's legal-move mask from the hand cards,
+  hand sizes and info tokens.
+
+Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
+for CPU tensors it runs its plain version (``fused_step_plain``,
+``fused_rollout_plain``, ``legal_moves_plain``), built on the plain env.
+Each call adds one to ``LAUNCHES[<wrapper name>]``.
+
+**Layout** (``TState``).  The game state is one int32 tensor ``st`` of
+``[ROWS, N]``, the JAX kernel's rows stacked in its order, so a warp's loads
+of one row are coalesced::
+
+    deck [M] | discards [C*R] | fireworks [C] | 16 scalar rows (SCAL_FIELDS)
+    | hand cards [P*H] | plausible [P*H] | hand sizes [P] | known color [P*H]
+    | known rank [P*H]
+
+(138 rows, 552 B per env, in the full config).  Hand rows are ``p * H + h``;
+the plausible masks and the episode LCG word hold uint32 bits as int32.
+The per-seat buffers are env-major, the layout the policy reads:
+``obs [N, P, OBS]`` int8, ``own [N, P, H*C*R]`` int8 and ``mask [N, P, A]``
+bool (JAX: ``[P, bits, N]``).  The per-step actions are ``[N, P]`` int32,
+the reward is the int32 score delta ``[N]``; the rollout's action words are
+``[1, N]`` as in JAX.  The episode counter is a uint32 held in an int64
+scalar tensor on the state's device.
+
+**Allocation order of K4.**  As K6 (``ops/cartpole.py``): per step in
+whole-batch world order, which equals T applications of K3 and JAX's
+``fused_rollout`` with ``block == N``.  JAX's multi-block grids allocate
+block by block, so there the checksums differ from JAX's.  K4 returns the
+launch-time obs / own / mask tensors, as JAX's kernel does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict
+
+import torch
+
+from ..core.batch import batched_reset, batched_step
+from ..core.rng import _MASK32, _lcg_next, _tea_seed, _to_i32
+from ..core.types import BatchState
+from ..device import DeviceLike, resolve_device
+from ..envs.hanabi import Env, State
+from . import _build
+
+# launches of each kernel since the last reset_launches()
+LAUNCHES: Dict[str, int] = {"fused_step": 0, "fused_rollout": 0, "legal_moves": 0}
+
+# the scalar rows, in the JAX kernel's order (hanabi_megakernel._SCAL_KEYS)
+SCAL_FIELDS = ("deck_size", "info_tokens", "life_tokens", "cur_player", "turns_to_play",
+               "score", "lm_move", "lm_player", "lm_target", "lm_card_index", "lm_scored",
+               "lm_info_token", "lm_color", "lm_rank", "lm_reveal_bits", "rng_v")
+CUR = SCAL_FIELDS.index("cur_player")
+INFO = SCAL_FIELDS.index("info_tokens")
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def fused_supported(env: Env) -> bool:
+    """2-player configs only (the reference's own 20-move envelope); games
+    of more players stay on the plain env."""
+    return env.players == 2
+
+
+def row_offsets(env: Env) -> Dict[str, int]:
+    """First row of each field of ``st`` and the total (``"rows"``)."""
+    PH = env.players * env.hand
+    sizes = (("deck", env.max_cards), ("disc", env.colors * env.ranks), ("fw", env.colors),
+             ("scal", len(SCAL_FIELDS)), ("hc", PH), ("hp", PH), ("hs", env.players),
+             ("kc", PH), ("kr", PH))
+    out, r = {}, 0
+    for name, n in sizes:
+        out[name] = r
+        r += n
+    out["rows"] = r
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TState:
+    st: torch.Tensor    # [ROWS, N] int32
+    obs: torch.Tensor   # [N, P, OBS] int8
+    own: torch.Tensor   # [N, P, H*C*R] int8
+    mask: torch.Tensor  # [N, P, A] bool
+
+    @property
+    def num_envs(self) -> int:
+        return self.st.shape[1]
+
+
+def pack_state(env: Env, s: State) -> TState:
+    N = s.deck.shape[0]
+    flat = lambda x: x.reshape(N, -1).t()
+    scal = torch.stack([getattr(s, f) for f in SCAL_FIELDS[:-1]] + [_to_i32(s.rng_v)])
+    st = torch.cat([flat(s.deck), flat(s.discard_counts), flat(s.fireworks), scal,
+                    flat(s.hand_cards), flat(_to_i32(s.hand_plausible)), flat(s.hand_size),
+                    flat(s.known_color), flat(s.known_rank)])
+    return TState(st=st.contiguous(), obs=s.obs_buf.contiguous(),
+                  own=s.own_buf.contiguous(), mask=s.mask_buf.contiguous())
+
+
+def unpack_state(env: Env, ts: TState) -> State:
+    P, H, N = env.players, env.hand, ts.num_envs
+    off = row_offsets(env)
+    rows = lambda name, n: ts.st[off[name]:off[name] + n].t().contiguous()
+    hands = lambda name: rows(name, P * H).reshape(N, P, H)
+    u32 = lambda x: x.to(torch.int64) & _MASK32
+    fields = {f: ts.st[off["scal"] + i].clone() for i, f in enumerate(SCAL_FIELDS)}
+    fields["rng_v"] = u32(fields["rng_v"])
+    return State(deck=rows("deck", env.max_cards),
+                 discard_counts=rows("disc", env.colors * env.ranks),
+                 fireworks=rows("fw", env.colors),
+                 hand_cards=hands("hc"), hand_plausible=u32(hands("hp")),
+                 hand_size=rows("hs", P), known_color=hands("kc"), known_rank=hands("kr"),
+                 obs_buf=ts.obs.clone(), own_buf=ts.own.clone(), mask_buf=ts.mask.clone(),
+                 **fields)
+
+
+def init_packed(env: Env, num_envs: int, start_episode: int = 0, device: DeviceLike = None):
+    """Fresh games ``start_episode + w`` in the kernel layout; returns
+    ``(TState, counter)``."""
+    bstate, _ = batched_reset(env, num_envs, start_episode, device=device)
+    return pack_state(env, bstate.env_states), bstate.episode_counter
+
+
+def hand_inputs(env: Env, ts: TState):
+    """K11's inputs read from the state: hand cards ``[N, P, H]``, hand sizes
+    ``[N, P]`` and info tokens ``[N]``, int32."""
+    off, N = row_offsets(env), ts.num_envs
+    PH = env.players * env.hand
+    cards = ts.st[off["hc"]:off["hc"] + PH].t().reshape(N, env.players, env.hand)
+    return (cards.contiguous(), ts.st[off["hs"]:off["hs"] + env.players].t().contiguous(),
+            ts.st[off["scal"] + INFO].contiguous())
+
+
+# ---- the rollout kernel's action stream -----------------------------------
+
+def init_action_rng(num_envs: int, seed: int = 0, device: DeviceLike = None) -> torch.Tensor:
+    """[1, N] int32 action-LCG seeds: TEA of ``idx ^ 0x48414E41`` ("HANA")."""
+    dev = resolve_device(device)
+    idx = torch.arange(num_envs, dtype=torch.int64, device=dev) + seed * num_envs
+    # the xor tag keeps this stream apart from every episode-RNG stream
+    return _tea_seed(idx ^ 0x48414E41)[None, :]
+
+
+def action_from_mask(w: torch.Tensor, mask: torch.Tensor):
+    """The rollout kernel's legal draw.  ``w``: [N] int32 LCG words;
+    ``mask``: [N, A] bool, the acting seat's legal moves.  Returns
+    ``(w', uid [N] int32)``: w' = lcg(w), and uid is the
+    ``(u24(w') * L) >> 24``-th legal move, L the number of legal moves and
+    u24 bits 8..31 of w' (0 when no move is legal)."""
+    w2 = _lcg_next(w)
+    u24 = (w2.to(torch.int64) >> 8) & 0x00FFFFFF
+    mi = mask.to(torch.int64)
+    idx = (u24 * mi.sum(-1)) >> 24
+    cum_before = torch.cumsum(mi, -1) - mi
+    hit = mi * (cum_before == idx[..., None])
+    uid = (torch.arange(mask.shape[-1], device=mask.device) * hit).sum(-1)
+    return w2, uid.to(torch.int32)
+
+
+def active_mask(env: Env, ts: TState) -> torch.Tensor:
+    """[N, A] bool: the mask row of the seat to act."""
+    cur = ts.st[row_offsets(env)["scal"] + CUR].long()
+    return ts.mask[torch.arange(ts.num_envs, device=ts.st.device), cur]
+
+
+# ---- plain versions --------------------------------------------------------
+
+def fused_step_plain(env: Env, ts: TState, counter: torch.Tensor, actions: torch.Tensor):
+    """K3's plain version: the plain env's ``batched_step``.  Returns
+    ``(TState', reward delta [N] int32, done [N] bool, counter')``."""
+    bstate = BatchState(env_states=unpack_state(env, ts), episode_counter=counter)
+    bstate, out = batched_step(env, bstate, actions)
+    return (pack_state(env, bstate.env_states), out.reward[:, 0].to(torch.int32), out.done,
+            bstate.episode_counter)
+
+
+def fused_rollout_plain(env: Env, ts: TState, counter: torch.Tensor, act_rng: torch.Tensor,
+                        num_steps: int):
+    """K4's plain version: ``num_steps`` plain steps, each env's action drawn
+    by ``action_from_mask`` from the acting seat's mask.  Returns
+    ``(TState', act_rng', counter', done_count [N] int32, checksum [N]
+    int32)``; the returned obs / own / mask are the launch-time ones."""
+    N, P = ts.num_envs, env.players
+    dev = ts.st.device
+    dcnt = torch.zeros(N, dtype=torch.int32, device=dev)
+    chk = torch.zeros(N, dtype=torch.int32, device=dev)
+    w, cur = act_rng[0], ts
+    for _ in range(num_steps):
+        w, uid = action_from_mask(w, active_mask(env, cur))
+        cur, rew, done, counter = fused_step_plain(env, cur, counter,
+                                                   uid[:, None].expand(N, P).contiguous())
+        bufs = (cur.obs.reshape(N, -1).sum(1, dtype=torch.int32)
+                + cur.own.reshape(N, -1).sum(1, dtype=torch.int32)
+                + cur.mask.reshape(N, -1).sum(1, dtype=torch.int32))
+        chk += rew * P + done.to(torch.int32) + bufs
+        dcnt += done.to(torch.int32)
+    out = TState(st=cur.st, obs=ts.obs, own=ts.own, mask=ts.mask)
+    return out, w[None, :], counter, dcnt, chk
+
+
+def legal_moves_plain(env: Env, hand_cards: torch.Tensor, hand_size: torch.Tensor,
+                      info_tokens: torch.Tensor) -> torch.Tensor:
+    """K11's plain version: the plain env's mask for every seat, ``[N, P,
+    A]`` bool."""
+    return torch.stack([env.legal_mask(hand_cards, hand_size, info_tokens, a)
+                        for a in range(env.players)], 1)
+
+
+# ---- CUDA kernels ----------------------------------------------------------
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("hanabi")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.hk_scratch_ints.argtypes = [i]
+        lib.hk_scratch_ints.restype = i
+        lib.hk_step.argtypes = [p, i] + [p] * 14 + [i, i, p]
+        lib.hk_step.restype = i
+        lib.hk_rollout.argtypes = [p, i] + [p] * 13 + [i, i, i, p]
+        lib.hk_rollout.restype = i
+        lib.hk_legal.argtypes = [p, i] + [p] * 4 + [i, i, p]
+        lib.hk_legal.restype = i
+        lib.hk_error_string.argtypes = [i]
+        lib.hk_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _cfg(env: Env):
+    """What the kernels read (``csrc/hanabi.cu``'s ``Cfg``, in its order):
+    the config, its sizes and the row offsets of ``st``."""
+    if not fused_supported(env):
+        raise ValueError("the hanabi kernels support 2-player configs")
+    if env.colors * env.ranks > 32 or env.num_actions > 32:
+        raise ValueError("the hanabi kernels hold the card values and the moves in 32-bit masks")
+    off = row_offsets(env)
+    vals = (env.colors, env.ranks, env.max_info, env.max_life, env.colors * env.ranks,
+            env.cards_per_color, env.max_cards, env.max_deck_bits, env.obs_size,
+            env.hand * env.bits_per_card, env.num_actions,
+            *(off[k] for k in ("deck", "disc", "fw", "scal", "hc", "hp", "hs", "kc", "kr",
+                               "rows")))
+    return (ctypes.c_int * len(vals))(*vals), len(vals)
+
+
+def _check_state(env: Env, ts: TState, counter: torch.Tensor) -> int:
+    N = ts.st.shape[1] if ts.st.dim() == 2 else -1
+    if N <= 0:
+        raise ValueError(f"st must be a non-empty [ROWS, N] tensor, got {tuple(ts.st.shape)}")
+    dev, P = ts.st.device, env.players
+    _build.check_tensor(ts.st, "st", torch.int32, (row_offsets(env)["rows"], N), dev)
+    _build.check_tensor(ts.obs, "obs", torch.int8, (N, P, env.obs_size), dev)
+    _build.check_tensor(ts.own, "own", torch.int8, (N, P, env.hand * env.bits_per_card), dev)
+    _build.check_tensor(ts.mask, "mask", torch.bool, (N, P, env.num_actions), dev)
+    _build.check_tensor(counter, "counter", torch.int64, (), dev, align=8)
+    return N
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().hk_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed to launch: error {rc} ({msg})")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _fused_step_cuda(env: Env, ts: TState, counter: torch.Tensor, actions: torch.Tensor):
+    N = _check_state(env, ts, counter)
+    dev = ts.st.device
+    _build.check_tensor(actions, "actions", torch.int32, (N, env.players), dev, align=4)
+    cfg, lib = _cfg(env), _lib()
+    out = TState(st=torch.empty_like(ts.st), obs=torch.empty_like(ts.obs),
+                 own=torch.empty_like(ts.own), mask=torch.empty_like(ts.mask))
+    rew = torch.empty(N, dtype=torch.int32, device=dev)
+    done = torch.empty(N, dtype=torch.bool, device=dev)
+    cnt = torch.empty_like(counter)
+    scratch = torch.empty(lib.hk_scratch_ints(N), dtype=torch.int32, device=dev)
+    rc = lib.hk_step(
+        *cfg, ts.st.data_ptr(), ts.obs.data_ptr(), ts.own.data_ptr(), ts.mask.data_ptr(),
+        actions.data_ptr(), counter.data_ptr(), out.st.data_ptr(), out.obs.data_ptr(),
+        out.own.data_ptr(), out.mask.data_ptr(), rew.data_ptr(), done.data_ptr(),
+        cnt.data_ptr(), scratch.data_ptr(), N, dev.index or 0, _stream(dev))
+    _raise_on(rc, "hk_step_kernel")
+    LAUNCHES["fused_step"] += 1
+    return out, rew, done, cnt
+
+
+def _fused_rollout_cuda(env: Env, ts: TState, counter: torch.Tensor, act_rng: torch.Tensor,
+                        num_steps: int):
+    N = _check_state(env, ts, counter)
+    dev = ts.st.device
+    _build.check_tensor(act_rng, "act_rng", torch.int32, (1, N), dev, align=4)
+    cfg, lib = _cfg(env), _lib()
+    st, arng = torch.empty_like(ts.st), torch.empty_like(act_rng)
+    dcnt = torch.empty(N, dtype=torch.int32, device=dev)
+    chk = torch.empty(N, dtype=torch.int32, device=dev)
+    cnt = torch.empty_like(counter)
+    seat_sums = torch.empty((env.players, N), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.hk_scratch_ints(N), dtype=torch.int32, device=dev)
+    rc = lib.hk_rollout(
+        *cfg, ts.st.data_ptr(), ts.obs.data_ptr(), ts.own.data_ptr(), ts.mask.data_ptr(),
+        act_rng.data_ptr(), counter.data_ptr(), st.data_ptr(), arng.data_ptr(),
+        dcnt.data_ptr(), chk.data_ptr(), cnt.data_ptr(), seat_sums.data_ptr(),
+        scratch.data_ptr(), N, int(num_steps), dev.index or 0, _stream(dev))
+    _raise_on(rc, "hk_rollout_kernel")
+    LAUNCHES["fused_rollout"] += 1
+    return TState(st=st, obs=ts.obs, own=ts.own, mask=ts.mask), arng, cnt, dcnt, chk
+
+
+def _check_hands(env: Env, hand_cards, hand_size, info_tokens) -> int:
+    N = hand_cards.shape[0] if hand_cards.dim() == 3 else -1
+    if N <= 0:
+        raise ValueError(f"hand_cards must be a non-empty [N, P, H] tensor, "
+                         f"got {tuple(hand_cards.shape)}")
+    dev, P = hand_cards.device, env.players
+    _build.check_tensor(hand_cards, "hand_cards", torch.int32, (N, P, env.hand), dev, align=4)
+    _build.check_tensor(hand_size, "hand_size", torch.int32, (N, P), dev, align=4)
+    _build.check_tensor(info_tokens, "info_tokens", torch.int32, (N,), dev, align=4)
+    return N
+
+
+def _legal_moves_cuda(env: Env, hand_cards, hand_size, info_tokens):
+    N = _check_hands(env, hand_cards, hand_size, info_tokens)
+    dev = hand_cards.device
+    cfg, lib = _cfg(env), _lib()
+    out = torch.empty((N, env.players, env.num_actions), dtype=torch.bool, device=dev)
+    rc = lib.hk_legal(*cfg, hand_cards.data_ptr(), hand_size.data_ptr(), info_tokens.data_ptr(),
+                      out.data_ptr(), N, dev.index or 0, _stream(dev))
+    _raise_on(rc, "hk_mask_kernel")
+    LAUNCHES["legal_moves"] += 1
+    return out
+
+
+def fused_step(env: Env, ts: TState, counter: torch.Tensor, actions: torch.Tensor):
+    """One step of every env.  ``actions``: int32 ``[N, P]`` (only the
+    current player's is read).  Returns ``(TState', reward delta [N] int32,
+    done [N] bool, counter')``.
+
+    K3 on CUDA tensors; the plain version on CPU tensors."""
+    if ts.st.is_cuda:
+        return _fused_step_cuda(env, ts, counter, actions)
+    _check_state(env, ts, counter)
+    return fused_step_plain(env, ts, counter, actions)
+
+
+def fused_rollout(env: Env, ts: TState, counter: torch.Tensor, act_rng: torch.Tensor,
+                  num_steps: int):
+    """``num_steps`` steps of every env in one launch, actions drawn from the
+    per-env LCG ``act_rng`` (``init_action_rng``) over the acting seat's
+    legal moves.  Returns ``(TState', act_rng', counter', done_count [N]
+    int32, checksum [N] int32)``; the returned obs / own / mask are the
+    launch-time tensors.
+
+    K4 on CUDA tensors; the plain version on CPU tensors."""
+    if num_steps < 1:
+        raise ValueError("num_steps must be >= 1")
+    if ts.st.is_cuda:
+        return _fused_rollout_cuda(env, ts, counter, act_rng, num_steps)
+    _check_state(env, ts, counter)
+    return fused_rollout_plain(env, ts, counter, act_rng, num_steps)
+
+
+def legal_moves(env: Env, hand_cards: torch.Tensor, hand_size: torch.Tensor,
+                info_tokens: torch.Tensor) -> torch.Tensor:
+    """Every seat's legal moves ``[N, P, A]`` bool from the hand cards
+    ``[N, P, H]``, hand sizes ``[N, P]`` and info tokens ``[N]`` (int32).
+
+    K11 on CUDA tensors; the plain version on CPU tensors."""
+    if hand_cards.is_cuda:
+        return _legal_moves_cuda(env, hand_cards, hand_size, info_tokens)
+    _check_hands(env, hand_cards, hand_size, info_tokens)
+    return legal_moves_plain(env, hand_cards, hand_size, info_tokens)

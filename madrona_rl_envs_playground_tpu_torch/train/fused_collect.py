@@ -1,8 +1,8 @@
 """Kernel-backed rollout collection for the trainers.
 
 Counterpart of ``madrona_rl_envs_playground_tpu/train/fused_collect.py``
-(``_overcooked_collect``, ``_cartpole_collect``, ``_balance_collect``).  A
-collector holds three functions:
+(``_overcooked_collect``, ``_cartpole_collect``, ``_balance_collect``,
+``_hanabi_collect``).  A collector holds three functions:
 
 * ``pack(bstate) -> carry``: env-major ``BatchState`` -> the kernel layout;
 * ``step(carry, actions [N, P]) -> (carry', StepOutput)``: one step through
@@ -25,10 +25,11 @@ import torch
 from ..core.rng import _MASK32
 from ..core.types import BatchState, StepOutput
 from ..device import DeviceLike, resolve_device
-from ..envs import balance_beam, cartpole
+from ..envs import balance_beam, cartpole, hanabi
 from ..envs.overcooked_base import OvercookedEnv
 from ..ops import balance as bp
 from ..ops import cartpole as cp
+from ..ops import hanabi as hk
 from ..ops import overcooked as ok
 
 
@@ -41,7 +42,8 @@ class FusedCollect:
 
 def make_fused_collect(env, num_envs: int, device: DeviceLike = None) -> Optional[FusedCollect]:
     """The env's collector on ``device`` (default ``"cuda"``), or None where
-    no kernel applies (an Overcooked layout outside the kernels' envelope)."""
+    no kernel applies (an Overcooked layout outside the kernels' envelope,
+    Hanabi of more than two players)."""
     dev = resolve_device(device)
     if isinstance(env, OvercookedEnv):
         return _overcooked_collect(env, num_envs, dev) if ok.fused_supported(env) else None
@@ -49,6 +51,8 @@ def make_fused_collect(env, num_envs: int, device: DeviceLike = None) -> Optiona
         return _cartpole_collect(env, num_envs, dev)
     if isinstance(env, balance_beam.Env):
         return _balance_collect(env, num_envs, dev)
+    if isinstance(env, hanabi.Env):
+        return _hanabi_collect(env, num_envs, dev) if hk.fused_supported(env) else None
     return None
 
 
@@ -123,5 +127,29 @@ def _balance_collect(env, num_envs: int, dev: torch.device) -> FusedCollect:
     def unpack(carry):
         ts, counter = carry
         return BatchState(env_states=bp.unpack_state(ts), episode_counter=counter)
+
+    return FusedCollect(pack=pack, step=step, unpack=unpack)
+
+
+def _hanabi_collect(env, num_envs: int, dev: torch.device) -> FusedCollect:
+    seats = torch.arange(env.players, device=dev)
+    cur_row = hk.row_offsets(env)["scal"] + hk.CUR
+
+    def pack(bstate: BatchState):
+        return hk.pack_state(env, bstate.env_states), bstate.episode_counter
+
+    def step(carry, actions: torch.Tensor):
+        ts, counter = carry
+        ts2, rew, done, counter = hk.fused_step(env, ts, counter,
+                                                actions.to(torch.int32).contiguous())
+        out = StepOutput(obs=ts2.obs, state_obs=torch.cat([ts2.obs, ts2.own], -1),
+                         action_mask=ts2.mask, active=ts2.st[cur_row][:, None] == seats,
+                         reward=rew.to(env.reward_dtype)[:, None].expand(num_envs, env.players),
+                         done=done)
+        return (ts2, counter), out
+
+    def unpack(carry):
+        ts, counter = carry
+        return BatchState(env_states=hk.unpack_state(env, ts), episode_counter=counter)
 
     return FusedCollect(pack=pack, step=step, unpack=unpack)

@@ -1,20 +1,30 @@
 """Self-play PPO: one policy controls every seat of every env.
 
-Counterpart of ``madrona_rl_envs_playground_tpu/train/selfplay.py`` for envs
-whose seats all act every step (``env.masked`` is False), after the
-reference's centralized self-play drivers
-(``pantheonrl_extension/centralized_agent.py``).  One update has three
-phases, kept separable as in JAX:
+Counterpart of ``madrona_rl_envs_playground_tpu/train/selfplay.py``, after
+the reference's centralized self-play drivers
+(``pantheonrl_extension/centralized_agent.py``, ``hanabi_agent.py``).  One
+update has three phases, kept separable as in JAX:
 
 1. ``_rollout``: ``num_steps`` steps of policy forward, sampling and env
    step (through the collector's kernel where the env has one);
-2. ``_advantage``: bootstrap value, GAE, advantage normalisation and the
-   minibatch chunks (bands of the T axis, in order, no shuffle);
+2. ``_advantage``: credit routing, bootstrap value, GAE, advantage
+   normalisation and the minibatch chunks (bands of the T axis, in order,
+   no shuffle);
 3. ``_update``: ``update_epochs`` passes over the chunks with the PPO loss,
    a global-norm gradient clip and Adam.
 
-The JAX ``lax.scan`` loops become Python loops.  The masked-env path with
-``credit_rewards``, checkpointing and the mesh come with later slices.
+Envs whose seats take turns (``env.masked``, Hanabi) keep the reference's
+credit rules (``vectoragent.py:197-219``, ``centralized_agent.py:288-322``):
+every (env, seat) stream records a slot every step; rewards earned while a
+seat is inactive flow back to its last active slot; rewards arriving after
+an episode boundary but before the seat's first action of the new episode
+are dropped; GAE runs with ``active_masked_gae``; and the advantage
+normalisation, every loss term and the metrics are means over the active
+slots only.  Their logits are masked to the legal moves, and their critic
+reads ``state_obs`` where it is not the obs (``env.state_is_obs``).
+
+The JAX ``lax.scan`` loops become Python loops.  Checkpointing and the mesh
+come with later slices.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ from ..core.batch import batched_reset, batched_step
 from ..device import DeviceLike, resolve_device
 from ..models.cleanrl import CleanRLNetwork
 from ..models.common import dist_entropy, dist_log_prob, dist_sample
-from .cleanrl_ppo import plain_gae
+from .cleanrl_ppo import Rollout, active_masked_gae, plain_gae
 from .fused_collect import make_fused_collect
 
 
@@ -55,6 +65,37 @@ class SelfPlayConfig:
     value_loss: str = "clipped_mse"
 
 
+def credit_rewards(rewards: torch.Tensor, active: torch.Tensor, dones: torch.Tensor):
+    """The reference's inactive-reward routing over raw per-step rewards.
+
+    rewards / active / dones: [T, M] (M = env x seat streams; dones is the
+    stream's episode end at that step).  Returns (credited [T, M],
+    slot_dones [T, M]): credited[t] is the reward attributed to the action
+    recorded at slot t, and slot_dones[t] the done delivered between slots
+    t-1 and t (the reference's ``next_done`` at record time,
+    ``vectoragent.py:288``)."""
+    T = rewards.shape[0]
+    # new-game flag when step t's rewards arrive: cleared when the seat
+    # acts at t, set after any done
+    new_game = torch.zeros_like(active[0])
+    ng = torch.empty_like(active)
+    for t in range(T):
+        ng_t = new_game & ~active[t]
+        ng[t] = ng_t
+        new_game = ng_t | dones[t]
+    kept = torch.where(ng, torch.zeros_like(rewards), rewards)
+    # each step's kept reward flows to the most recent active slot at or
+    # before it
+    acc = torch.zeros_like(rewards[0])
+    credited = torch.empty_like(rewards)
+    for t in range(T - 1, -1, -1):
+        acc = acc + kept[t]
+        credited[t] = torch.where(active[t], acc, torch.zeros_like(acc))
+        acc = torch.where(active[t], torch.zeros_like(acc), acc)
+    slot_dones = torch.cat([torch.zeros_like(dones[:1]), dones[:-1]])
+    return credited, slot_dones
+
+
 class SelfPlayPPO:
     """Owns the network, the optimizer and the batched env state.
 
@@ -65,9 +106,6 @@ class SelfPlayPPO:
     def __init__(self, env, num_envs: int, cfg: SelfPlayConfig = SelfPlayConfig(),
                  seed: int = 0, device: DeviceLike = None):
         self.device = resolve_device(device)
-        if env.masked or not env.state_is_obs:
-            raise NotImplementedError("masked envs, and envs whose critic state is not "
-                                      "the obs, are not ported yet")
         if cfg.value_loss not in ("clipped_mse", "smooth_l1"):
             raise ValueError(f"unknown value_loss {cfg.value_loss!r}")
         if cfg.num_steps % cfg.num_minibatches:
@@ -76,6 +114,10 @@ class SelfPlayPPO:
         self.env = env
         self.num_envs = num_envs
         self.cfg = cfg
+        # envs whose state_obs is the obs store one trajectory buffer, and
+        # envs that never mask store no mask or active flags
+        self._alias = env.state_is_obs
+        self._masked = env.masked
         init_gen = torch.Generator().manual_seed(seed)
         self.net = CleanRLNetwork(
             env.obs_size, env.num_actions, cfg.hidden, cfg.num_layers,
@@ -84,8 +126,9 @@ class SelfPlayPPO:
         self.opt = torch.optim.Adam(self.net.parameters(), lr=cfg.lr, eps=1e-5)
         self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
         # envs with a step kernel (Overcooked layouts inside its envelope,
-        # Cartpole, Balance Beam) step through it; the rest (e.g.
-        # many_player_layout-scale grids) only have the plain env
+        # Cartpole, Balance Beam, 2-player Hanabi) step through it; the rest
+        # (e.g. many_player_layout-scale grids, 3-player Hanabi) only have
+        # the plain env
         self._fused = make_fused_collect(env, num_envs, self.device)
         bstate, out = batched_reset(env, num_envs, device=self.device)
         self.state = {"bstate": bstate, "out": out}
@@ -115,16 +158,29 @@ class SelfPlayPPO:
             "reward": torch.empty((T, M), dtype=torch.float32, device=dev),
             "done": torch.empty((T, M), dtype=torch.bool, device=dev),
         }
+        if not self._alias:
+            tr["state_obs"] = torch.empty((T, M, env.state_size), dtype=out.state_obs.dtype,
+                                          device=dev)
+        if self._masked:
+            tr["mask"] = torch.empty((T, M, env.num_actions), dtype=torch.bool, device=dev)
+            tr["active"] = torch.empty((T, M), dtype=torch.bool, device=dev)
         with torch.no_grad():
             for t in range(T):
                 obs = out.obs.reshape(M, -1)
-                logits, value = self.net(obs, obs)  # state_obs is obs
+                st = obs if self._alias else out.state_obs.reshape(M, -1)
+                mask = out.action_mask.reshape(M, -1) if self._masked else None
+                logits, value = self.net(obs, st, mask)
                 if actions is None:
                     action = dist_sample(self.sample_gen, logits)
                 else:
                     action = actions[t].reshape(M).to(device=dev, dtype=torch.int32)
                 carry, out2 = env_step(carry, action.reshape(N, P))
                 tr["obs"][t] = obs
+                if not self._alias:
+                    tr["state_obs"][t] = st
+                if self._masked:
+                    tr["mask"][t] = mask
+                    tr["active"][t] = out.active.reshape(M)
                 tr["action"][t] = action
                 tr["logp"][t] = dist_log_prob(logits, action)
                 tr["value"][t] = value
@@ -140,51 +196,79 @@ class SelfPlayPPO:
         cfg = self.cfg
         T, N, P = cfg.num_steps, self.num_envs, self.env.num_agents
         M = N * P
-        rewards = tr["reward"]
-        # every seat acts every step: slot dones are the dones shifted by one
-        slot_dones = torch.cat([torch.zeros_like(tr["done"][:1]), tr["done"][:-1]])
+        if self._masked:
+            rewards, slot_dones = credit_rewards(tr["reward"], tr["active"], tr["done"])
+        else:
+            # every seat acts every step: the routing is the identity and
+            # slot dones are the dones shifted by one
+            rewards = tr["reward"]
+            slot_dones = torch.cat([torch.zeros_like(tr["done"][:1]), tr["done"][:-1]])
         with torch.no_grad():
             next_value = self.net.get_value(out.state_obs.reshape(M, -1))
         next_done = out.done[:, None].expand(N, P).reshape(M)
-        adv, returns = plain_gae(rewards, slot_dones, tr["value"], next_value,
-                                 next_done, cfg.gamma, cfg.gae_lambda)
-        n = float(T * M)
-        m = adv.mean()
-        var = ((adv - m) ** 2).mean()
-        std = torch.sqrt(var * n / max(n - 1.0, 1.0))  # unbiased
+        if self._masked:
+            buf = Rollout(obs=tr["obs"], states=tr["state_obs"], actions=tr["action"],
+                          action_masks=tr["mask"], logprobs=tr["logp"], rewards=rewards,
+                          dones=slot_dones, active=tr["active"], values=tr["value"])
+            adv, returns, active = active_masked_gae(buf, next_value, next_done,
+                                                     out.active.reshape(M), cfg.gamma,
+                                                     cfg.gae_lambda)
+            b_active = active.float()
+            n = torch.clamp(b_active.sum(), min=1.0)
+            n_less_1 = torch.clamp(n - 1.0, min=1.0)
+            mean = lambda x: (x * b_active).sum() / n
+        else:
+            adv, returns = plain_gae(rewards, slot_dones, tr["value"], next_value,
+                                     next_done, cfg.gamma, cfg.gae_lambda)
+            n = float(T * M)
+            n_less_1 = max(n - 1.0, 1.0)
+            mean = lambda x: x.mean()
+        m = mean(adv)
+        var = mean((adv - m) ** 2)
+        std = torch.sqrt(var * n / n_less_1)  # unbiased
         adv = (adv - m) / (std + 1e-8)
         nmb = cfg.num_minibatches
         batch = {"obs": tr["obs"], "actions": tr["action"], "logprobs": tr["logp"],
                  "advantages": adv, "returns": returns, "values": tr["value"]}
+        if not self._alias:
+            batch["states"] = tr["state_obs"]
+        if self._masked:
+            batch["masks"] = tr["mask"]
+            batch["active"] = b_active
         chunks = {k: v.reshape((nmb, T // nmb) + tuple(v.shape[1:]))
                   for k, v in batch.items()}
-        stats = {"mean_step_reward": rewards.mean(), "mean_value": tr["value"].mean()}
+        stats = {"mean_step_reward": mean(rewards), "mean_value": mean(tr["value"])}
         return chunks, stats
 
     def _mb_loss(self, c: Dict[str, torch.Tensor]):
         cfg = self.cfg
-        logits, newvalue = self.net(c["obs"], c["obs"])
+        logits, newvalue = self.net(c["obs"], c.get("states", c["obs"]), c.get("masks"))
         newlogprob = dist_log_prob(logits, c["actions"])
         entropy = dist_entropy(logits)
+        if "active" in c:
+            n = torch.clamp(c["active"].sum(), min=1.0)
+            mean = lambda x: (x * c["active"]).sum() / n
+        else:
+            mean = lambda x: x.mean()
         logratio = newlogprob - c["logprobs"]
         ratio = torch.exp(logratio)
         adv = c["advantages"]
-        pg = torch.maximum(
+        pg = mean(torch.maximum(
             -adv * ratio,
-            -adv * torch.clamp(ratio, 1 - cfg.clip_coef, 1 + cfg.clip_coef)).mean()
-        ent = entropy.mean()
+            -adv * torch.clamp(ratio, 1 - cfg.clip_coef, 1 + cfg.clip_coef)))
+        ent = mean(entropy)
         if cfg.value_loss == "smooth_l1":
             err = newvalue - c["returns"]
             a = torch.abs(err)
-            vl = torch.where(a < 1.0, 0.5 * err * err, a - 0.5).mean()
+            vl = mean(torch.where(a < 1.0, 0.5 * err * err, a - 0.5))
             total = (pg - cfg.ent_coef * ent + vl) * 128.0
         else:
             clipped = c["values"] + torch.clamp(
                 newvalue - c["values"], -cfg.clip_coef, cfg.clip_coef)
-            vl = 0.5 * torch.maximum((newvalue - c["returns"]) ** 2,
-                                     (clipped - c["returns"]) ** 2).mean()
+            vl = 0.5 * mean(torch.maximum((newvalue - c["returns"]) ** 2,
+                                          (clipped - c["returns"]) ** 2))
             total = pg - cfg.ent_coef * ent + vl * cfg.vf_coef
-        kl = ((ratio - 1) - logratio).mean()
+        kl = mean((ratio - 1) - logratio)
         return total, (pg, vl, ent, kl)
 
     def _clip_grads(self) -> None:

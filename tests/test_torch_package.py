@@ -68,7 +68,7 @@ def test_kernels_build_from_csrc_into_an_ignored_directory(tmp_path, monkeypatch
 
     from madrona_rl_envs_playground_tpu_torch.ops import _build
 
-    names = ("overcooked", "cartpole", "balance")
+    names = ("overcooked", "cartpole", "balance", "hanabi")
     for name in names:
         assert (_build.CSRC / f"{name}.cu").is_file()
         assert _build.library_path(name).parent == REPO / "build" / "kernels"

@@ -179,17 +179,19 @@ def test_one_update_matches_jax(value_loss, jax_rollout):
     assert_update_matches_jax(jt, tt, j_tr, j_out)
 
 
-def assert_update_matches_jax(jt, tt, j_tr, j_out, loss_atol=1e-7):
+def assert_update_matches_jax(jt, tt, j_tr, j_out, loss_atol=1e-7, loss_abs=None):
     """One PPO update of the port's ``tt`` on the JAX trajectory ``j_tr``
     against the JAX trainer ``jt``'s: advantages, returns, stats, the last
-    epoch's losses (``rtol 1e-4``, ``atol loss_atol``) and every parameter
-    delta."""
+    epoch's losses (``rtol 1e-4``, ``atol loss_atol``, and within
+    ``loss_abs`` where given) and every parameter delta.  A masked env's
+    trajectory also carries its state obs, masks and active flags."""
     params0 = jt.state["params"]
     chunks, j_stats = jt._advantage(params0, j_tr, j_out)
     params1, _, auxes = jt._update(params0, jt.state["opt_state"], chunks)
 
     t_tr = {k: torch.from_numpy(np.array(j_tr[k]))
-            for k in ("obs", "action", "logp", "value", "reward", "done")}
+            for k in ("obs", "state_obs", "mask", "active", "action", "logp", "value",
+                      "reward", "done") if k in j_tr}
     t_out = StepOutput(**{f: torch.from_numpy(np.array(getattr(j_out, f)))
                           for f in ("obs", "state_obs", "action_mask", "active",
                                     "reward", "done")})
@@ -203,6 +205,8 @@ def assert_update_matches_jax(jt, tt, j_tr, j_out, loss_atol=1e-7):
     for name, t_v, j_v in zip(("pg_loss", "v_loss", "entropy", "approx_kl"), t_aux, auxes):
         np.testing.assert_allclose(float(t_v), float(j_v[-1]), rtol=1e-4, atol=loss_atol,
                                    err_msg=name)
+        if loss_abs is not None:
+            assert abs(float(t_v) - float(j_v[-1])) <= loss_abs, name
 
     j0, j1 = _np_params(params0)["params"], _np_params(params1)["params"]
     after = tt.net.state_dict()
