@@ -1,7 +1,7 @@
 """The port's batch simulators."""
 
-from . import balance_beam, cartpole, hanabi, overcooked, overcooked2
+from . import acrobot, balance_beam, cartpole, hanabi, overcooked, overcooked2
 from .layouts import LAYOUTS, get_base_layout_params
 
-__all__ = ["balance_beam", "cartpole", "hanabi", "overcooked", "overcooked2", "LAYOUTS",
-           "get_base_layout_params"]
+__all__ = ["acrobot", "balance_beam", "cartpole", "hanabi", "overcooked", "overcooked2",
+           "LAYOUTS", "get_base_layout_params"]

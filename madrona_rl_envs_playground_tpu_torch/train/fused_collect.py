@@ -1,8 +1,8 @@
 """Kernel-backed rollout collection for the trainers.
 
 Counterpart of ``madrona_rl_envs_playground_tpu/train/fused_collect.py``
-(``_overcooked_collect``, ``_cartpole_collect``, ``_balance_collect``,
-``_hanabi_collect``).  A collector holds three functions:
+(``_overcooked_collect``, ``_acrobot_collect``, ``_cartpole_collect``,
+``_balance_collect``, ``_hanabi_collect``).  A collector holds three functions:
 
 * ``pack(bstate) -> carry``: env-major ``BatchState`` -> the kernel layout;
 * ``step(carry, actions [N, P]) -> (carry', StepOutput)``: one step through
@@ -10,23 +10,27 @@ Counterpart of ``madrona_rl_envs_playground_tpu/train/fused_collect.py``
   CPU), with a ``StepOutput`` equal to ``batched_step``'s;
 * ``unpack(carry) -> bstate``.
 
-Pack and unpack run once per rollout, not once per step.  The episode
-counter stays a uint32 in an int64 scalar tensor on the device, wrapping at
-2^32 as ``core/batch.py``'s does.
+Where no kernel applies, ``make_fused_collect`` returns the plain collector
+(``kernel`` False): ``batched_step`` with identity pack and unpack, so the
+trainers always step through a collector.  Pack and unpack run once per
+rollout, not once per step.  The episode counter stays a uint32 in an int64
+scalar tensor on the device, wrapping at 2^32 as ``core/batch.py``'s does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Tuple
 
 import torch
 
+from ..core.batch import batched_step
 from ..core.rng import _MASK32
 from ..core.types import BatchState, StepOutput
 from ..device import DeviceLike, resolve_device
-from ..envs import balance_beam, cartpole, hanabi
+from ..envs import acrobot, balance_beam, cartpole, hanabi
 from ..envs.overcooked_base import OvercookedEnv
+from ..ops import acrobot as ap
 from ..ops import balance as bp
 from ..ops import cartpole as cp
 from ..ops import hanabi as hk
@@ -38,22 +42,27 @@ class FusedCollect:
     pack: Callable[[BatchState], Any]
     step: Callable[[Any, torch.Tensor], Tuple[Any, StepOutput]]
     unpack: Callable[[Any], BatchState]
+    kernel: bool = True  # False: the plain ``batched_step``
 
 
-def make_fused_collect(env, num_envs: int, device: DeviceLike = None) -> Optional[FusedCollect]:
-    """The env's collector on ``device`` (default ``"cuda"``), or None where
-    no kernel applies (an Overcooked layout outside the kernels' envelope,
-    Hanabi of more than two players)."""
+def make_fused_collect(env, num_envs: int, device: DeviceLike = None) -> FusedCollect:
+    """The env's collector on ``device`` (default ``"cuda"``), or the plain
+    one where no kernel applies (an Overcooked layout outside the kernels'
+    envelope, Hanabi of more than two players; JAX returns None there)."""
     dev = resolve_device(device)
-    if isinstance(env, OvercookedEnv):
-        return _overcooked_collect(env, num_envs, dev) if ok.fused_supported(env) else None
+    if isinstance(env, OvercookedEnv) and ok.fused_supported(env):
+        return _overcooked_collect(env, num_envs, dev)
+    if isinstance(env, acrobot.Env):
+        return _acrobot_collect(env, num_envs, dev)
     if isinstance(env, cartpole.Env):
         return _cartpole_collect(env, num_envs, dev)
     if isinstance(env, balance_beam.Env):
         return _balance_collect(env, num_envs, dev)
-    if isinstance(env, hanabi.Env):
-        return _hanabi_collect(env, num_envs, dev) if hk.fused_supported(env) else None
-    return None
+    if isinstance(env, hanabi.Env) and hk.fused_supported(env):
+        return _hanabi_collect(env, num_envs, dev)
+    ident = lambda x: x  # noqa: E731
+    return FusedCollect(pack=ident, step=lambda c, a: batched_step(env, c, a), unpack=ident,
+                        kernel=False)
 
 
 def _constant_outputs(env, num_envs: int, dev: torch.device):
@@ -83,6 +92,28 @@ def _overcooked_collect(env, num_envs: int, dev: torch.device) -> FusedCollect:
         ts, counter = carry
         return BatchState(env_states=ok.unpack_state(env, ts),
                           episode_counter=counter)
+
+    return FusedCollect(pack=pack, step=step, unpack=unpack)
+
+
+def _acrobot_collect(env, num_envs: int, dev: torch.device) -> FusedCollect:
+    mask, active = _constant_outputs(env, num_envs, dev)
+    reward = torch.full((num_envs, 1), -1.0, dtype=torch.float32, device=dev)
+
+    def pack(bstate: BatchState):
+        return ap.pack_state(bstate.env_states), bstate.episode_counter
+
+    def step(carry, actions: torch.Tensor):
+        ts, counter = carry
+        ts2, done, counter = ap.fused_step(ts, counter, actions.to(torch.int32).contiguous())
+        obs = ts2.st.view(num_envs, 1, 4)  # the state is the obs
+        out = StepOutput(obs=obs, state_obs=obs, action_mask=mask,
+                         active=active, reward=reward, done=done)
+        return (ts2, counter), out
+
+    def unpack(carry):
+        ts, counter = carry
+        return BatchState(env_states=ap.unpack_state(ts), episode_counter=counter)
 
     return FusedCollect(pack=pack, step=step, unpack=unpack)
 

@@ -1,0 +1,120 @@
+"""MAPPO configuration (the reference's ``train/config.py`` defaults).
+
+Counterpart of ``madrona_rl_envs_playground_tpu/train/mappo/config.py``: one
+dataclass with the reference's flag names and defaults (``use_valuenorm``
+True and ``use_popart`` False, ppo_epoch 15, max_grad_norm 10.0, huber 10.0,
+hidden 512 x layer_N 2 with ReLU and a feature LayerNorm, lr = critic_lr =
+5e-4), and ``get_config()``, the same flags on an argparse parser.
+
+The JAX config's ``rollout_backend`` is not carried: in the port the device
+decides, and the env's collector steps through its kernel on the card and
+its plain version on the CPU.  The runner takes the device instead.  Nor are
+the flags of what the port does not run yet, which nothing here would read:
+``use_naive_recurrent_policy``, ``recurrent_N`` and ``data_chunk_length``
+(the GRU), the
+render settings beyond ``use_render``, ``save_interval``,
+``n_eval_rollout_threads`` and ``weight_decay`` (AdamW; nothing sets it).
+``COLAB_RECIPE`` is the reference Colab's configuration on Overcooked2
+``simple`` (``scripts/mappo_train.py``), written once here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from ...models.mappo_nets import ModelConfig
+
+# the reference Colab's args cell (overcooked_compiled_colab.ipynb): 800
+# envs, episode 200, hidden 64 x 1 layer, lr 1e-2, ppo_epoch 7, 8M env-steps
+# (50 updates)
+COLAB_RECIPE = dict(n_rollout_threads=800, episode_length=200, hidden_size=64, layer_N=1,
+                    lr=1e-2, critic_lr=1e-2, ppo_epoch=7, num_env_steps=8e6)
+
+
+@dataclasses.dataclass(frozen=True)
+class MAPPOConfig:
+    # rollout
+    episode_length: int = 200
+    n_rollout_threads: int = 1
+    num_env_steps: float = 10e6
+    # network
+    hidden_size: int = 512
+    layer_N: int = 2
+    use_ReLU: bool = True
+    use_orthogonal: bool = True
+    use_feature_normalization: bool = True
+    gain: float = 0.01
+    use_recurrent_policy: bool = False
+    # grid-shaped [W, H, C] obs for the CNN base (Overcooked only)
+    use_cnn_obs: bool = False
+    # optimizer
+    lr: float = 5e-4
+    critic_lr: float = 5e-4
+    opti_eps: float = 1e-5
+    use_linear_lr_decay: bool = False
+    # ppo
+    ppo_epoch: int = 15
+    clip_param: float = 0.2
+    num_mini_batch: int = 1
+    # minibatches as permuted timestep bands for a mesh (ROADMAP item 13)
+    shard_local_minibatch: bool = False
+    entropy_coef: float = 0.01
+    value_loss_coef: float = 1.0
+    use_max_grad_norm: bool = True
+    max_grad_norm: float = 10.0
+    use_gae: bool = True
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    use_proper_time_limits: bool = False
+    use_huber_loss: bool = True
+    huber_delta: float = 10.0
+    use_clipped_value_loss: bool = True
+    use_popart: bool = False
+    use_valuenorm: bool = True
+    use_value_active_masks: bool = True
+    use_policy_active_masks: bool = True
+    # run
+    seed: int = 1
+    log_interval: int = 5
+    # periodic deterministic eval during training (runner.evaluate);
+    # eval_episodes is a total episode budget spread over the training envs
+    use_eval: bool = False
+    eval_interval: int = 25
+    eval_episodes: int = 32
+    # render after training (ROADMAP item 14; the script raises on it)
+    use_render: bool = False
+
+    def model_config(self) -> ModelConfig:
+        return ModelConfig(
+            hidden_size=self.hidden_size,
+            layer_N=self.layer_N,
+            use_relu=self.use_ReLU,
+            use_orthogonal=self.use_orthogonal,
+            use_feature_normalization=self.use_feature_normalization,
+            gain=self.gain,
+            use_recurrent_policy=self.use_recurrent_policy,
+            use_popart=self.use_popart,
+        )
+
+
+def get_config() -> argparse.ArgumentParser:
+    """Argparse mirror of the reference ``train/config.py:get_config``."""
+    p = argparse.ArgumentParser(description="MAPPO (PyTorch port)")
+    for f in dataclasses.fields(MAPPOConfig):
+        name = "--" + f.name
+        if isinstance(f.default, bool):
+            p.add_argument(name, dest=f.name,
+                           action="store_false" if f.default else "store_true")
+            p.set_defaults(**{f.name: f.default})
+        else:
+            p.add_argument(name, type=type(f.default), default=f.default)
+    # env selection flags from the reference trainer surface
+    p.add_argument("--env_name", type=str, default="overcooked")
+    p.add_argument("--over_layout", type=str, default="simple")
+    p.add_argument("--model_dir", type=str, default=None)
+    return p
+
+
+def config_from_args(args) -> MAPPOConfig:
+    return MAPPOConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(MAPPOConfig)})

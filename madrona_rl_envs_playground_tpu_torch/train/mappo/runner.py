@@ -1,0 +1,192 @@
+"""MAPPO self-play runner.
+
+Counterpart of ``madrona_rl_envs_playground_tpu/train/mappo/runner.py``, the
+reference ``MainPlayer`` (``train/MAPPO/main_player.py:185-309``): one
+policy acts for every seat of every env each step, the trajectories of all
+(env, seat) streams fill one shared buffer, then R_MAPPO trains on it.  One
+update is three phases:
+
+1. ``_collect``: ``episode_length`` steps of policy forward, sampling and
+   env step, a Python loop (JAX scans it);
+2. ``_compute``: the bootstrap value and ``compute_returns``;
+3. ``trainer.train``: the PPO epochs.
+
+The env steps through its collector (``train/fused_collect.py``), so on the
+card through its step kernel (K1 for Overcooked, K9 for Acrobot) and on the
+CPU through the kernel's plain version; envs without a kernel get the plain
+``batched_step``.  The device decides; there is no option.  ``evaluate``
+steps the same way.  The policy is feed-forward: no rnn states are carried
+(the GRU is ROADMAP queue 1, item 11).  Left to later items:
+``save``/``restore`` and the scalar logger (item 14), render (item 14), the
+mesh (item 13).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import torch
+
+from ...core.batch import batched_reset
+from ...device import DeviceLike, resolve_device
+from ...models.common import dist_sample
+from ..fused_collect import make_fused_collect
+from .buffer import MAPPOBuffer, compute_returns, init_buffer
+from .config import MAPPOConfig
+from .policy import MAPPOPolicy
+from .trainer import RMAPPOTrainer
+
+
+class MAPPORunner:
+    def __init__(self, cfg: MAPPOConfig, env, device: DeviceLike = None):
+        self.device = dev = resolve_device(device)
+        if cfg.use_cnn_obs:
+            raise NotImplementedError("the CNN base (use_cnn_obs) is not ported yet: "
+                                      "ROADMAP queue 1, item 11")
+        self.cfg = cfg
+        self.env = env
+        self.N = cfg.n_rollout_threads
+        self.A = env.num_agents
+        self.policy = MAPPOPolicy(cfg, obs_shape=(env.obs_size,),
+                                  share_obs_shape=(env.state_size,),
+                                  num_actions=env.num_actions, seed=cfg.seed, device=dev)
+        self.trainer = RMAPPOTrainer(cfg, self.policy)
+        self.sample_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        self.bstate, self.out = batched_reset(env, self.N, device=dev)
+        # 0 where the env's last step ended an episode (the buffer's slot T)
+        self._masks = torch.ones((self.N * self.A,), device=dev)
+        self._fused = make_fused_collect(env, self.N, dev)
+        self.episode_rewards = []  # average episode score of each update
+
+    # ------------------------------------------------------------------
+    def _collect(self, actions: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One ``episode_length`` rollout from the runner's carry, which it
+        advances.  ``actions`` ([T, N, A] int), when given, replaces the
+        sampled actions.  Returns the trajectory, ``[T, M, ...]`` with
+        M = N * A thread-major."""
+        cfg, N, A = self.cfg, self.N, self.A
+        B, T, dev = N * A, cfg.episode_length, self.device
+        carry, out, masks = self._fused.pack(self.bstate), self.out, self._masks
+        env = self.env
+        tr = {
+            "share_obs": torch.empty((T, B, env.state_size), dtype=out.state_obs.dtype,
+                                     device=dev),
+            "obs": torch.empty((T, B, env.obs_size), dtype=out.obs.dtype, device=dev),
+            "actions": torch.empty((T, B), dtype=torch.int32, device=dev),
+            "logp": torch.empty((T, B), device=dev),
+            "values": torch.empty((T, B), device=dev),
+            "rewards": torch.empty((T, B), device=dev),
+            "masks": torch.empty((T, B), device=dev),
+            "active": torch.empty((T, B), device=dev),
+            "avail": torch.empty((T, B, env.num_actions), dtype=torch.bool, device=dev),
+            "done": torch.empty((T, N), dtype=torch.bool, device=dev),
+        }
+        with torch.no_grad():
+            for t in range(T):
+                obs = out.obs.reshape(B, -1)  # the env's dtype; the bases cast
+                sobs = out.state_obs.reshape(B, -1)
+                avail = out.action_mask.reshape(B, -1)
+                injected = None if actions is None else actions[t].reshape(B).to(
+                    device=dev, dtype=torch.int32)
+                values, act, logp = self.policy.get_actions(
+                    sobs, obs, avail, generator=self.sample_gen, actions=injected)
+                carry, out2 = self._fused.step(carry, act.reshape(N, A))
+                done_b = out2.done[:, None].expand(N, A).reshape(B)
+                masks2 = 1.0 - done_b.float()
+                for k, v in (("share_obs", sobs), ("obs", obs), ("actions", act), ("logp", logp),
+                             ("values", values), ("rewards", out2.reward.reshape(B)), ("masks", masks),
+                             ("active", out.active.reshape(B)), ("avail", avail),
+                             ("done", out2.done)):
+                    tr[k][t] = v
+                masks, out = masks2, out2
+        self.bstate, self.out = self._fused.unpack(carry), out
+        self._masks = masks
+        return tr
+
+    def _compute(self, buf: MAPPOBuffer) -> MAPPOBuffer:
+        B = self.N * self.A
+        with torch.no_grad():
+            next_value = self.policy.get_values(self.out.state_obs.reshape(B, -1))
+        vn = self.trainer.vn if (self.cfg.use_popart or self.cfg.use_valuenorm) else None
+        return compute_returns(buf, next_value.reshape(B), vn, self.cfg.gamma,
+                               self.cfg.gae_lambda, self.cfg.use_gae,
+                               self.cfg.use_proper_time_limits)
+
+    def _tr_to_buffer(self, tr: Dict[str, torch.Tensor], final_masks: torch.Tensor,
+                      final_active: torch.Tensor) -> MAPPOBuffer:
+        cfg, env, N, A = self.cfg, self.env, self.N, self.A
+        buf = init_buffer(cfg.episode_length, N, A, env.obs_size, env.state_size,
+                          env.num_actions, obs_dtype=env.obs_dtype, device=self.device)
+        buf.share_obs[:-1] = tr["share_obs"]
+        buf.obs[:-1] = tr["obs"]
+        buf.actions.copy_(tr["actions"])
+        buf.action_log_probs.copy_(tr["logp"])
+        buf.value_preds[:-1] = tr["values"]
+        buf.rewards.copy_(tr["rewards"])
+        # slot T takes the mask after the last step, as the reference's
+        # insert writes masks[step + 1] every step: a horizon-aligned episode
+        # must not bootstrap from the next episode's first obs
+        buf.masks[:-1] = tr["masks"]
+        buf.masks[-1] = final_masks.reshape(N * A)
+        buf.active_masks[:-1] = tr["active"]
+        buf.active_masks[-1] = final_active.reshape(N * A)
+        buf.available_actions[:-1] = tr["avail"]
+        return buf
+
+    def update(self, episode: int, episodes: int, actions: Optional[torch.Tensor] = None):
+        """One update: collect, compute, train.  Returns (train info, the
+        average episode score: seat 0's reward summed over the rollout, per
+        env)."""
+        lrs = self.policy.lr_for(episode, episodes)
+        tr = self._collect(actions)
+        buf = self._tr_to_buffer(tr, self._masks, self.out.active.float())
+        buf = self._compute(buf)
+        info = self.trainer.train(buf, lrs)
+        ep_rew = float(tr["rewards"].reshape(-1, self.N, self.A)[:, :, 0].sum()) / self.N
+        return info, ep_rew
+
+    # ------------------------------------------------------------------
+    def run(self, episodes: Optional[int] = None, log=print):
+        cfg = self.cfg
+        steps_per_episode = cfg.episode_length * self.N
+        if episodes is None:
+            episodes = int(cfg.num_env_steps) // steps_per_episode
+        t0 = time.time()
+        info = None
+        for ep in range(episodes):
+            info, ep_rew = self.update(ep, episodes)
+            self.episode_rewards.append(ep_rew)
+            steps = (ep + 1) * steps_per_episode
+            if log is not None and ((ep + 1) % cfg.log_interval == 0 or ep == episodes - 1):
+                fps = steps / (time.time() - t0)
+                log(f"episode {ep + 1}/{episodes} steps={steps} avg_ep_reward={ep_rew:.2f} "
+                    f"vloss={float(info['value_loss']):.4f} "
+                    f"ent={float(info['dist_entropy']):.3f} FPS={fps:,.0f}")
+            if cfg.use_eval and (ep + 1) % cfg.eval_interval == 0:
+                score = self.evaluate(episodes=max(1, cfg.eval_episodes // self.N))
+                if log is not None:
+                    log(f"eval @ episode {ep + 1}: deterministic score {score:.3f}")
+        return info
+
+    # ---- deterministic eval (train/tester.py analog) ------------------
+    def evaluate(self, episodes: int = 1, deterministic: bool = True) -> float:
+        """Average episode score over ``episodes * episode_length`` steps of
+        fresh envs (episodes from 10,000,000 on), seat 0's reward summed, per
+        episode and env.  Steps through the env's collector where it has one,
+        whose outputs equal ``batched_step``'s."""
+        cfg, N, A, dev = self.cfg, self.N, self.A, self.device
+        B = N * A
+        bstate, out = batched_reset(self.env, N, start_episode=10_000_000, device=dev)
+        carry = self._fused.pack(bstate)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed + 777)
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+        with torch.no_grad():
+            for _ in range(episodes * cfg.episode_length):
+                logits = self.policy.actor(out.obs.reshape(B, -1),
+                                           out.action_mask.reshape(B, -1))
+                act = (torch.argmax(logits, -1).to(torch.int32) if deterministic
+                       else dist_sample(gen, logits))
+                carry, out = self._fused.step(carry, act.reshape(N, A))
+                total += out.reward[:, 0].sum(dtype=torch.float64)
+        return float(total) / (episodes * N)

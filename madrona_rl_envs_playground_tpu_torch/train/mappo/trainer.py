@@ -1,0 +1,167 @@
+"""The R_MAPPO update, feed-forward.
+
+Counterpart of ``RMAPPOTrainer._train`` in
+``madrona_rl_envs_playground_tpu/train/mappo/trainer.py`` (reference
+``R_MAPPO``, ``train/MAPPO/r_mappo.py``):
+
+* advantages are the returns minus the denormalized value predictions,
+  normalized over the active steps (population variance, as the reference's
+  ``np.nanstd``);
+* ``ppo_epoch`` x ``num_mini_batch`` updates on random permutations of the
+  flat batch; with one minibatch the whole ``[T, M]`` batch, unshuffled
+  (every reduction is order-free, so the reference's shuffle changes
+  nothing there);
+* the actor loss: the clipped surrogate weighted by the active masks, minus
+  the entropy bonus; the critic loss: value clipping and a Huber loss
+  against the value-normalized returns, the ValueNorm or PopArt statistics
+  updated minibatch by minibatch *before* the normalization, as the
+  reference's ``cal_value_loss``; each network behind its own global-norm
+  clip and Adam.
+
+The recurrent update (``_train_recurrent``) is not ported yet (ROADMAP
+queue 1, item 11); ``shard_local_minibatch`` waits for the mesh (item 13).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ...models.mappo_nets import get_critic_head
+from ..optim import clip_grad_global_norm_
+from .buffer import MAPPOBuffer
+from .config import MAPPOConfig
+from .policy import MAPPOPolicy
+from .valuenorm import (ValueNormState, init_valuenorm, popart_update, vn_denormalize,
+                        vn_normalize, vn_update)
+
+
+def huber(e: torch.Tensor, delta: float) -> torch.Tensor:
+    a = torch.abs(e)
+    return torch.where(a > delta, delta * (a - 0.5 * delta), 0.5 * e ** 2)
+
+
+class RMAPPOTrainer:
+    def __init__(self, cfg: MAPPOConfig, policy: MAPPOPolicy):
+        if cfg.use_popart and cfg.use_valuenorm:
+            raise ValueError("use_popart and use_valuenorm are exclusive")
+        if cfg.shard_local_minibatch:
+            raise NotImplementedError("shard_local_minibatch needs the mesh, which is not "
+                                      "ported yet: ROADMAP queue 1, item 13")
+        self.cfg = cfg
+        self.policy = policy
+        self.vn: ValueNormState = init_valuenorm(policy.device)
+        self.generator = torch.Generator(device=policy.device).manual_seed(cfg.seed)
+
+    def _normalized(self) -> bool:
+        return self.cfg.use_popart or self.cfg.use_valuenorm
+
+    def _value_loss(self, vn, values, value_preds_b, return_b, active_b,
+                    stats_updated: bool = False):
+        cfg = self.cfg
+        clipped = value_preds_b + torch.clamp(values - value_preds_b, -cfg.clip_param,
+                                              cfg.clip_param)
+        if self._normalized():
+            if not stats_updated:
+                vn = vn_update(vn, return_b)
+            target = vn_normalize(vn, return_b)
+        else:
+            target = return_b
+        err_clip, err_orig = target - clipped, target - values
+        if cfg.use_huber_loss:
+            l_clip, l_orig = huber(err_clip, cfg.huber_delta), huber(err_orig, cfg.huber_delta)
+        else:
+            l_clip, l_orig = 0.5 * err_clip ** 2, 0.5 * err_orig ** 2
+        loss = torch.maximum(l_orig, l_clip) if cfg.use_clipped_value_loss else l_orig
+        if cfg.use_value_active_masks:
+            vl = (loss * active_b).sum() / active_b.sum()
+        else:
+            vl = loss.mean()
+        return vl, vn
+
+    def _ppo_update(self, sample: Sequence[torch.Tensor]):
+        """One minibatch: PopArt's head update where enabled, then one Adam
+        step of the actor and one of the critic.  Returns (value loss, policy
+        loss, entropy, mean ratio), detached."""
+        cfg, pol = self.cfg, self.policy
+        (sobs, obs, act, vp, ret, amsk, old_logp, adv, avail) = sample
+        stats_updated = False
+        if cfg.use_popart:
+            # refresh the statistics on this minibatch's returns and rescale
+            # the value head so that its outputs are preserved
+            head = get_critic_head(pol.critic)
+            with torch.no_grad():
+                k2, b2, self.vn = popart_update(head.weight[0], head.bias[0], self.vn, ret)
+                head.weight[0] = k2
+                head.bias[0] = b2
+            stats_updated = True
+
+        values, logp, entropy = pol.evaluate_actions(sobs, obs, act, avail, amsk)
+        ratio = torch.exp(logp - old_logp)
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * adv
+        per = -torch.minimum(surr1, surr2)
+        pg_loss = (per * amsk).sum() / amsk.sum() if cfg.use_policy_active_masks else per.mean()
+        v_loss, vn = self._value_loss(self.vn, values, vp, ret, amsk, stats_updated)
+
+        pol.actor_opt.zero_grad(set_to_none=True)
+        pol.critic_opt.zero_grad(set_to_none=True)
+        (pg_loss - entropy * cfg.entropy_coef).backward()
+        (v_loss * cfg.value_loss_coef).backward()
+        if cfg.use_max_grad_norm:
+            clip_grad_global_norm_(pol.actor.parameters(), cfg.max_grad_norm)
+            clip_grad_global_norm_(pol.critic.parameters(), cfg.max_grad_norm)
+        pol.actor_opt.step()
+        pol.critic_opt.step()
+        self.vn = vn
+        return torch.stack([v_loss.detach(), pg_loss.detach(), entropy.detach(),
+                            ratio.mean().detach()])
+
+    def train(self, buf: MAPPOBuffer, lrs: Optional[Tuple[float, float]] = None,
+              perms: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """``ppo_epoch`` passes over ``buf``; ``lrs`` = (actor, critic)
+        learning rates (default the config's).  With ``num_mini_batch > 1``
+        each epoch draws a permutation of the ``T * M`` samples from the
+        trainer's generator, or takes ``perms[epoch]`` where given (tests
+        replay JAX's order).  Returns the mean losses, entropy and ratio."""
+        cfg, pol = self.cfg, self.policy
+        actor_lr, critic_lr = lrs if lrs is not None else (cfg.lr, cfg.critic_lr)
+        for group in pol.actor_opt.param_groups:
+            group["lr"] = actor_lr
+        for group in pol.critic_opt.param_groups:
+            group["lr"] = critic_lr
+        T, M = buf.rewards.shape
+
+        with torch.no_grad():
+            vp = buf.value_preds[:-1]
+            adv_raw = buf.returns[:-1] - (vn_denormalize(self.vn, vp) if self._normalized()
+                                          else vp)
+            active = buf.active_masks[:-1] > 0
+            n_act = torch.clamp(active.sum(), min=1)
+            zero = torch.zeros_like(adv_raw)
+            mean_adv = torch.where(active, adv_raw, zero).sum() / n_act
+            var_adv = torch.where(active, (adv_raw - mean_adv) ** 2, zero).sum() / n_act
+            advantages = (adv_raw - mean_adv) / (torch.sqrt(var_adv) + 1e-5)
+
+        nmb = cfg.num_mini_batch
+        B = T * M
+        flat = (lambda x: x) if nmb == 1 else (lambda x: x.reshape((B,) + x.shape[2:]))
+        data = tuple(flat(x) for x in (
+            buf.share_obs[:-1], buf.obs[:-1], buf.actions, buf.value_preds[:-1],
+            buf.returns[:-1], buf.active_masks[:-1], buf.action_log_probs, advantages,
+            buf.available_actions[:-1]))
+
+        epochs = []
+        for epoch in range(cfg.ppo_epoch):
+            if nmb == 1:
+                epochs.append(self._ppo_update(data))
+                continue
+            mb = B // nmb
+            perm = (perms[epoch].to(pol.device) if perms is not None
+                    else torch.randperm(B, generator=self.generator, device=pol.device))
+            idxs = perm[: nmb * mb].reshape(nmb, mb)
+            epochs.append(torch.stack([self._ppo_update(tuple(d[idx] for d in data))
+                                       for idx in idxs]).mean(0))
+        m = torch.stack(epochs).mean(0)
+        return {"value_loss": m[0], "policy_loss": m[1], "dist_entropy": m[2], "ratio": m[3]}

@@ -1,0 +1,80 @@
+"""Value normalization for MAPPO.
+
+Counterpart of ``madrona_rl_envs_playground_tpu/train/mappo/valuenorm.py``:
+
+* ``ValueNorm``: the debiased running mean and variance of the value
+  targets (reference ``train/MAPPO/utils/valuenorm.py``: EMA with
+  beta = 0.99999, optional per-element weighting, variance clamped to
+  >= 1e-2), as three float32 scalar tensors;
+* ``popart_update``: the PopArt head update (reference ``utils/popart.py``),
+  which rescales the critic's output layer so that its outputs survive the
+  new statistics.  It shares the ValueNorm state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+
+from ...device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ValueNormState:
+    running_mean: torch.Tensor     # [] f32
+    running_mean_sq: torch.Tensor  # [] f32
+    debiasing_term: torch.Tensor   # [] f32
+
+
+def init_valuenorm(device: DeviceLike = None) -> ValueNormState:
+    dev = resolve_device(device)
+    z = lambda: torch.zeros((), dtype=torch.float32, device=dev)  # noqa: E731
+    return ValueNormState(running_mean=z(), running_mean_sq=z(), debiasing_term=z())
+
+
+def _debiased_mean_var(s: ValueNormState, epsilon=1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    mean = s.running_mean / torch.clamp(s.debiasing_term, min=epsilon)
+    mean_sq = s.running_mean_sq / torch.clamp(s.debiasing_term, min=epsilon)
+    var = torch.clamp(mean_sq - mean ** 2, min=1e-2)
+    return mean, var
+
+
+def vn_update(s: ValueNormState, x: torch.Tensor, beta: float = 0.99999,
+              per_element_update: bool = False) -> ValueNormState:
+    batch_mean = x.mean()
+    batch_sq_mean = (x ** 2).mean()
+    weight = beta ** float(math.prod(x.shape)) if per_element_update else beta
+    return ValueNormState(
+        running_mean=s.running_mean * weight + batch_mean * (1.0 - weight),
+        running_mean_sq=s.running_mean_sq * weight + batch_sq_mean * (1.0 - weight),
+        debiasing_term=s.debiasing_term * weight + (1.0 - weight),
+    )
+
+
+def vn_normalize(s: ValueNormState, x: torch.Tensor) -> torch.Tensor:
+    mean, var = _debiased_mean_var(s)
+    return (x - mean) / torch.sqrt(var)
+
+
+def vn_denormalize(s: ValueNormState, x: torch.Tensor) -> torch.Tensor:
+    mean, var = _debiased_mean_var(s)
+    return x * torch.sqrt(var) + mean
+
+
+def popart_update(kernel: torch.Tensor, bias: torch.Tensor, s: ValueNormState,
+                  x: torch.Tensor, beta: float = 0.99999):
+    """Update the statistics on ``x`` and rescale the value head so that its
+    outputs are preserved (reference ``popart.py:49-73``).  ``kernel`` is
+    the head's ``[H]`` weight row, ``bias`` its scalar bias.  Returns
+    (kernel', bias', state')."""
+    old_mean, old_var = _debiased_mean_var(s)
+    old_std = torch.sqrt(old_var)
+    s2 = vn_update(s, x, beta=beta)
+    new_mean, new_var = _debiased_mean_var(s2)
+    new_std = torch.sqrt(new_var)
+    kernel2 = kernel * old_std / new_std
+    bias2 = (old_std * bias + old_mean - new_mean) / new_std
+    return kernel2, bias2, s2

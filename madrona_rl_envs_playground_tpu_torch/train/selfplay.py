@@ -11,7 +11,7 @@ update has three phases, kept separable as in JAX:
    normalisation and the minibatch chunks (bands of the T axis, in order,
    no shuffle);
 3. ``_update``: ``update_epochs`` passes over the chunks with the PPO loss,
-   a global-norm gradient clip and Adam.
+   a global-norm gradient clip (``train/optim.py``) and Adam.
 
 Envs whose seats take turns (``env.masked``, Hanabi) keep the reference's
 credit rules (``vectoragent.py:197-219``, ``centralized_agent.py:288-322``):
@@ -34,12 +34,13 @@ from typing import Dict, Optional
 
 import torch
 
-from ..core.batch import batched_reset, batched_step
+from ..core.batch import batched_reset
 from ..device import DeviceLike, resolve_device
 from ..models.cleanrl import CleanRLNetwork
 from ..models.common import dist_entropy, dist_log_prob, dist_sample
 from .cleanrl_ppo import Rollout, active_masked_gae, plain_gae
 from .fused_collect import make_fused_collect
+from .optim import clip_grad_global_norm_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,9 +127,9 @@ class SelfPlayPPO:
         self.opt = torch.optim.Adam(self.net.parameters(), lr=cfg.lr, eps=1e-5)
         self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
         # envs with a step kernel (Overcooked layouts inside its envelope,
-        # Cartpole, Balance Beam, 2-player Hanabi) step through it; the rest
-        # (e.g. many_player_layout-scale grids, 3-player Hanabi) only have
-        # the plain env
+        # Cartpole, Balance Beam, Acrobot, 2-player Hanabi) step through it;
+        # the rest (e.g. many_player_layout-scale grids, 3-player Hanabi)
+        # get the plain collector
         self._fused = make_fused_collect(env, num_envs, self.device)
         bstate, out = batched_reset(env, num_envs, device=self.device)
         self.state = {"bstate": bstate, "out": out}
@@ -143,12 +144,7 @@ class SelfPlayPPO:
         T, N, P = cfg.num_steps, self.num_envs, env.num_agents
         M = N * P
         dev = self.device
-        fused = self._fused
-        if fused is not None:
-            carry, env_step = fused.pack(self.state["bstate"]), fused.step
-        else:
-            carry = self.state["bstate"]
-            env_step = lambda c, a: batched_step(env, c, a)
+        carry, env_step = self._fused.pack(self.state["bstate"]), self._fused.step
         out = self.state["out"]
         tr = {
             "obs": torch.empty((T, M, env.obs_size), dtype=out.obs.dtype, device=dev),
@@ -187,8 +183,7 @@ class SelfPlayPPO:
                 tr["reward"][t] = out2.reward.reshape(M)
                 tr["done"][t] = out2.done[:, None].expand(N, P).reshape(M)
                 out = out2
-        bstate = fused.unpack(carry) if fused is not None else carry
-        return bstate, out, tr
+        return self._fused.unpack(carry), out, tr
 
     def _advantage(self, tr: Dict[str, torch.Tensor], out):
         """Phase 2.  Returns (chunks, stats): chunks maps each buffer to
@@ -271,16 +266,6 @@ class SelfPlayPPO:
         kl = mean((ratio - 1) - logratio)
         return total, (pg, vl, ent, kl)
 
-    def _clip_grads(self) -> None:
-        """Global-norm clip as optax writes it: ``g / norm * max_norm`` when
-        ``norm >= max_norm`` (``clip_grad_norm_`` adds 1e-6 to the norm)."""
-        grads = [p.grad for p in self.net.parameters() if p.grad is not None]
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-        keep = norm < self.cfg.max_grad_norm
-        with torch.no_grad():
-            for g in grads:
-                g.copy_(torch.where(keep, g, g / norm * self.cfg.max_grad_norm))
-
     def _update(self, chunks: Dict[str, torch.Tensor]):
         """Phase 3.  Returns the last epoch's (pg, v, entropy, kl) losses,
         each the mean over its minibatches."""
@@ -292,7 +277,7 @@ class SelfPlayPPO:
                 loss, aux = self._mb_loss({k: v[i] for k, v in chunks.items()})
                 self.opt.zero_grad(set_to_none=True)
                 loss.backward()
-                self._clip_grads()
+                clip_grad_global_norm_(self.net.parameters(), self.cfg.max_grad_norm)
                 self.opt.step()
                 auxes.append(torch.stack([x.detach() for x in aux]))
             last = torch.stack(auxes).mean(0)

@@ -210,7 +210,7 @@ def test_selfplay_rollout_and_update_match_jax():
     tt = t_selfplay.SelfPlayPPO(tb.Env(), n, t_selfplay.SelfPlayConfig(**common),
                                 seed=0, device="cpu")
     load_flax_params(tt.net, _np_params(jt.state["params"]))
-    assert tt._fused is not None
+    assert tt._fused.kernel
     acts = np.random.RandomState(4).randint(0, 4, size=(T, n, 2)).astype(np.int32)
     j_bstate, j_out, j_tr = jax_rollout_injected(jt, acts)
     t_bstate, t_out, t_tr = tt._rollout(torch.from_numpy(acts))

@@ -247,7 +247,7 @@ def test_selfplay_rollout_and_update_match_jax():
     """A rollout with injected actions through the collector, then one PPO
     update on the JAX trajectory, both against JAX."""
     jt, tt = _trainers()
-    assert tt._fused is not None
+    assert tt._fused.kernel
     acts = np.random.RandomState(2).randint(0, 2, size=(24, 8, 1)).astype(np.int32)
     j_bstate, j_out, j_tr = jax_rollout_injected(jt, acts)
     t_bstate, t_out, t_tr = tt._rollout(torch.from_numpy(acts))

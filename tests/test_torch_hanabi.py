@@ -283,4 +283,4 @@ def test_collector_matches_batched_step():
     assert int(back.episode_counter) == int(bstate.episode_counter) > n
     for f in bstate.env_states.__dataclass_fields__:
         assert torch.equal(getattr(back.env_states, f), getattr(bstate.env_states, f)), f
-    assert make_fused_collect(th.Env(**THREE_PLAYERS), n, device=CPU) is None
+    assert not make_fused_collect(th.Env(**THREE_PLAYERS), n, device=CPU).kernel

@@ -144,7 +144,7 @@ def jax_rollout():
 def test_rollout_matches_jax_with_injected_actions(jax_rollout):
     acts, j_bstate, j_out, j_tr = jax_rollout
     _, tt = _trainers()
-    assert tt._fused is not None  # 2 players: through the K3 collector
+    assert tt._fused.kernel  # 2 players: through the K3 collector
     t_bstate, t_out, t_tr = tt._rollout(torch.from_numpy(acts))
     for k in ("obs", "state_obs", "mask", "active", "action", "reward", "done"):
         got, ref = t_tr[k].numpy(), np.asarray(j_tr[k])
@@ -176,7 +176,7 @@ def test_trainer_picks_the_collector_by_player_count(cfg, has_kernel):
     as in JAX; both train."""
     scfg = t_selfplay.SelfPlayConfig(num_steps=4, hidden=8, num_layers=1, num_minibatches=2)
     tr = t_selfplay.SelfPlayPPO(th.Env(**cfg), 3, scfg, seed=1, device="cpu")
-    assert (tr._fused is not None) == has_kernel
+    assert tr._fused.kernel == has_kernel
     for _ in range(2):
         m = tr.train_step()
     assert all(torch.isfinite(v) for v in m.values())

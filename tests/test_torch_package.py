@@ -48,8 +48,10 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax():
     """Also covers imports inside functions, which the import test above
-    does not run, and ``chip_smoke.py``."""
-    for f in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    does not run, ``chip_smoke.py`` and the port's scripts."""
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert scripts
+    for f in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + scripts:
         for line in f.read_text().splitlines():
             code = line.split("#")[0]
             words = code.replace(",", " ").split()
@@ -68,7 +70,7 @@ def test_kernels_build_from_csrc_into_an_ignored_directory(tmp_path, monkeypatch
 
     from madrona_rl_envs_playground_tpu_torch.ops import _build
 
-    names = ("overcooked", "cartpole", "balance", "hanabi")
+    names = ("overcooked", "cartpole", "balance", "hanabi", "acrobot")
     for name in names:
         assert (_build.CSRC / f"{name}.cu").is_file()
         assert _build.library_path(name).parent == REPO / "build" / "kernels"

@@ -255,16 +255,16 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
 
 @pytest.mark.parametrize("name,has_kernel", [
     ("cramped_room", True), ("many_player_layout", False), ("cartpole", True),
-    ("balance", True)])
+    ("balance", True), ("acrobot", True)])
 def test_trainer_picks_the_collector_by_env(name, has_kernel):
     """Envs with a step kernel get a collector; an Overcooked grid outside
     the kernels' envelope steps through the plain env, as in JAX."""
-    from madrona_rl_envs_playground_tpu_torch.envs import balance_beam, cartpole
+    from madrona_rl_envs_playground_tpu_torch.envs import acrobot, balance_beam, cartpole
 
-    env = {"cartpole": cartpole.Env, "balance": balance_beam.Env}.get(
+    env = {"cartpole": cartpole.Env, "balance": balance_beam.Env, "acrobot": acrobot.Env}.get(
         name, lambda: t_oc.make(name, horizon=6, num_players=6 if "many" in name else None))()
     cfg = t_selfplay.SelfPlayConfig(num_steps=2, hidden=8, num_layers=1)
     tr = t_selfplay.SelfPlayPPO(env, 2, cfg, device="cpu")
-    assert (tr._fused is not None) == has_kernel
+    assert tr._fused.kernel == has_kernel
     m = tr.train_step()
     assert all(torch.isfinite(v) for v in m.values())
