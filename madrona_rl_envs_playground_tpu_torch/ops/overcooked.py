@@ -11,7 +11,10 @@ Two kernels, in ``csrc/overcooked.cu``:
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it runs its plain version (``fused_step_plain``,
 ``fused_rollout_plain``), which is the plain env of ``envs/overcooked_base``.
-Each launch adds one to ``LAUNCHES[<wrapper name>]``.
+Each launch adds one to ``LAUNCHES[<wrapper name>]``.  The kernels read the
+env's layout (``_Layout``: scalars, terrain, recipe tables, the pot and
+counter cells, the obs cell order) from the card; it is built once per env
+and copied once per device.
 
 **Kernel state layout** (``TState``): ``rows`` is int8 ``[4S + 6P, N]``, the
 rows in this order: obj_name, obj_onions, obj_tomatoes, obj_tick (S rows
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 from typing import Dict
 
 import torch
@@ -40,7 +44,7 @@ from ..core.batch import batched_step
 from ..core.rng import _lcg_next, _tea_seed, _to_i32
 from ..core.types import BatchState
 from ..device import DeviceLike, resolve_device
-from ..envs.overcooked_base import OvercookedEnv, State
+from ..envs.overcooked_base import T_AIR, T_COUNTER, T_POT, OvercookedEnv, State
 from . import _build
 
 CELL_FIELDS = ("obj_name", "obj_onions", "obj_tomatoes", "obj_tick")
@@ -175,34 +179,76 @@ class _Layout(ctypes.Structure):
     """Mirror of ``struct OcLayout`` in ``csrc/overcooked.cu``."""
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "P", "W", "H", "C", "K", "v1", "horizon", "t_tomato", "t_dish",
-        "t_serve", "r_place", "r_dish", "r_soup")] + [
+        "t_serve", "r_place", "r_dish", "r_soup", "n_pots", "n_counters",
+        "base_total")] + [
         ("rtimes", ctypes.c_int * 16), ("rvals", ctypes.c_int * 16),
         ("starts", ctypes.c_int * MAX_PLAYERS),
-        ("terr", ctypes.c_byte * MAX_CELLS)]
+        ("terr", ctypes.c_byte * MAX_CELLS), ("cell_of", ctypes.c_byte * MAX_CELLS),
+        ("pots", ctypes.c_byte * MAX_CELLS), ("counters", ctypes.c_byte * MAX_CELLS)]
 
 
-def _layout(env: OvercookedEnv) -> _Layout:
+def _make_layout(env: OvercookedEnv) -> _Layout:
+    H, W = env.height, env.width
+    terr = list(env.terrain)
+    pots = [s for s, t in enumerate(terr) if t == T_POT]
+    counters = [s for s, t in enumerate(terr) if t == T_COUNTER]
     lay = _Layout(
         S=env.size, P=env.num_players, W=env.width, H=env.height,
         C=env.num_channels, K=env.num_obj_channels,
         v1=int(env.variant == "v1"), horizon=env.horizon,
         t_tomato=env.t_tomato_src, t_dish=env.t_dish_src, t_serve=env.t_serving,
         r_place=env.placement_in_pot_rew, r_dish=env.dish_pickup_rew,
-        r_soup=env.soup_pickup_rew)
+        r_soup=env.soup_pickup_rew, n_pots=len(pots), n_counters=len(counters),
+        # every observer sees each non-air cell's terrain one-hot: the
+        # rollout's checksum adds this constant every step
+        base_total=env.num_players * sum(t > T_AIR for t in terr))
     lay.rtimes[:] = list(env.recipe_times)
     lay.rvals[:] = list(env.recipe_values)
     lay.starts[:len(env.start_pos)] = list(env.start_pos)
-    lay.terr[:env.size] = list(env.terrain)
+    lay.terr[:env.size] = terr
+    # obs cells run (x, y)-major, state cells (y, x)-major: obs cell
+    # q = x * H + y is state cell y * W + x
+    lay.cell_of[:env.size] = [(q % H) * W + q // H for q in range(env.size)]
+    lay.pots[:len(pots)] = pots
+    lay.counters[:len(counters)] = counters
     return lay
+
+
+# env -> its layout, and env -> {device: the layout's bytes there}, built
+# on first use
+_LAYOUTS = weakref.WeakKeyDictionary()
+_DEVICE_LAYOUTS = weakref.WeakKeyDictionary()
+
+
+def _layout(env: OvercookedEnv) -> _Layout:
+    lay = _LAYOUTS.get(env)
+    if lay is None:
+        lay = _LAYOUTS[env] = _make_layout(env)
+    return lay
+
+
+def _device_layout(env: OvercookedEnv, dev: torch.device) -> torch.Tensor:
+    """The layout's bytes on ``dev``, which the kernels read."""
+    per_dev = _DEVICE_LAYOUTS.setdefault(env, {})
+    t = per_dev.get(dev)
+    if t is None:
+        t = per_dev[dev] = torch.tensor(list(bytes(_layout(env))), dtype=torch.uint8,
+                                        device=dev)
+    return t
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("overcooked")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.oc_step.argtypes = [p] * 9 + [i, i, p]
+        lib.oc_layout_size.argtypes = []
+        lib.oc_layout_size.restype = i
+        if lib.oc_layout_size() != ctypes.sizeof(_Layout):
+            raise RuntimeError(f"struct OcLayout has {lib.oc_layout_size()} bytes, its "
+                               f"ctypes mirror {ctypes.sizeof(_Layout)}")
+        lib.oc_step.argtypes = [p] * 10 + [i, i, p]
         lib.oc_step.restype = i
-        lib.oc_rollout.argtypes = [p] * 9 + [i, i, i, p]
+        lib.oc_rollout.argtypes = [p] * 10 + [i, i, i, p]
         lib.oc_rollout.restype = i
         lib.oc_error_string.argtypes = [i]
         lib.oc_error_string.restype = ctypes.c_char_p
@@ -237,13 +283,12 @@ def _fused_step_cuda(env: OvercookedEnv, ts: TState, actions_t: torch.Tensor):
     obs = torch.empty((N, P, env.obs_size), dtype=torch.int8, device=dev)
     rew = torch.empty((P, N), dtype=torch.int32, device=dev)
     done = torch.empty(N, dtype=torch.bool, device=dev)
-    lay = _layout(env)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().oc_step(
-        ctypes.addressof(lay), ts.rows.data_ptr(), ts.timestep.data_ptr(),
-        actions_t.data_ptr(), rows.data_ptr(), tstep.data_ptr(),
-        obs.data_ptr(), rew.data_ptr(), done.data_ptr(), N, dev.index or 0,
-        stream)
+        ctypes.addressof(_layout(env)), _device_layout(env, dev).data_ptr(),
+        ts.rows.data_ptr(), ts.timestep.data_ptr(), actions_t.data_ptr(), rows.data_ptr(),
+        tstep.data_ptr(), obs.data_ptr(), rew.data_ptr(), done.data_ptr(), N,
+        dev.index or 0, stream)
     _raise_on(rc, "oc_step_kernel")
     LAUNCHES["fused_step"] += 1
     return TState(rows=rows, timestep=tstep), obs, rew, done
@@ -261,13 +306,12 @@ def _fused_rollout_cuda(env: OvercookedEnv, ts: TState, act_rng: torch.Tensor,
     rng = torch.empty_like(act_rng)
     dcnt = torch.empty(N, dtype=torch.int32, device=dev)
     chk = torch.empty(N, dtype=torch.int32, device=dev)
-    lay = _layout(env)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().oc_rollout(
-        ctypes.addressof(lay), ts.rows.data_ptr(), ts.timestep.data_ptr(),
-        act_rng.data_ptr(), rows.data_ptr(), tstep.data_ptr(), rng.data_ptr(),
-        dcnt.data_ptr(), chk.data_ptr(), N, int(num_steps), dev.index or 0,
-        stream)
+        ctypes.addressof(_layout(env)), _device_layout(env, dev).data_ptr(),
+        ts.rows.data_ptr(), ts.timestep.data_ptr(), act_rng.data_ptr(), rows.data_ptr(),
+        tstep.data_ptr(), rng.data_ptr(), dcnt.data_ptr(), chk.data_ptr(), N,
+        int(num_steps), dev.index or 0, stream)
     _raise_on(rc, "oc_rollout_kernel")
     LAUNCHES["fused_rollout"] += 1
     return TState(rows=rows, timestep=tstep), rng, dcnt, chk

@@ -3,7 +3,8 @@
 The JAX side runs ``fused_step``/``fused_rollout`` in Pallas interpret mode
 on the CPU, as ``tests/test_overcooked_pallas.py`` does.  The kernels
 themselves run only on the card, where ``chip_smoke.py`` holds each against
-these plain versions.  Every comparison is exact.
+these plain versions.  Every comparison is exact.  The last tests hold the
+layout the kernels read (built once per env) against the plain env.
 """
 
 import jax
@@ -24,9 +25,10 @@ JAX_FIELDS = ("obj_name", "obj_onions", "obj_tomatoes", "obj_tick", "pos",
               "orient", "held_name", "held_onions", "held_tomatoes", "held_tick")
 
 
-def _make(variant, layout, horizon):
+def _make(variant, layout, horizon, num_players=None):
     jm, tm = (j_oc, t_oc) if variant == "v1" else (j_oc2, t_oc2)
-    return jm.make(layout, horizon=horizon), tm.make(layout, horizon=horizon)
+    return (jm.make(layout, horizon=horizon, num_players=num_players),
+            tm.make(layout, horizon=horizon, num_players=num_players))
 
 
 def _assert_tstate_equal(t_ts, j_ts, msg):
@@ -45,14 +47,18 @@ def _obs_from_jax_layout(env, obs_pcsn):
     return o.transpose(4, 0, 3, 2, 1).reshape(N, P, W * H * C)
 
 
-@pytest.mark.parametrize("variant,layout,horizon,steps,seed", [
-    ("v1", "cramped_room", 8, 14, 5),
-    ("v2", "simple", 8, 14, 3),
-    ("v1", "multiplayer_schelling", 6, 8, 7),
+@pytest.mark.parametrize("variant,layout,horizon,steps,seed,players", [
+    ("v1", "cramped_room", 8, 14, 5, None),
+    ("v2", "simple", 8, 14, 3, None),
+    ("v1", "multiplayer_schelling", 6, 8, 7, None),
+    # the kernels' other check layouts: P = 1, the largest grid, P = 3
+    ("v1", "simple_single", 8, 10, 11, None),
+    ("v1", "small_corridor", 6, 8, 13, None),
+    ("v1", "multiplayer_schelling", 6, 8, 17, 3),
 ])
-def test_step_plain_matches_jax_fused_step(variant, layout, horizon, steps, seed):
+def test_step_plain_matches_jax_fused_step(variant, layout, horizon, steps, seed, players):
     n = 8
-    j_env, t_env = _make(variant, layout, horizon)
+    j_env, t_env = _make(variant, layout, horizon, players)
     j_ts = jok.init_packed(j_env, n)
     t_ts = tok.init_packed(t_env, n, device=CPU)
     _assert_tstate_equal(t_ts, j_ts, "init")
@@ -117,3 +123,76 @@ def test_wrappers_check_their_inputs():
     big = t_oc.make("many_player_layout", horizon=5, num_players=6)
     with pytest.raises(ValueError):
         tok.init_packed(big, 4, device=CPU)
+
+
+# ---- the kernels' layout, built once per env ----------------------------------
+
+LAYOUT_CASES = [("v1", "cramped_room"), ("v2", "simple"), ("v1", "simple_single"),
+                ("v1", "multiplayer_schelling")]
+
+
+def _t_env(variant, layout, horizon=400):
+    return (t_oc if variant == "v1" else t_oc2).make(layout, horizon=horizon)
+
+
+def _fields(lay):
+    return {name: (list(getattr(lay, name)) if hasattr(getattr(lay, name), "__len__")
+                   else getattr(lay, name)) for name, _ in tok._Layout._fields_}
+
+
+@pytest.mark.parametrize("variant,layout", LAYOUT_CASES)
+def test_layout_is_cached_and_equals_a_fresh_one(variant, layout):
+    env = _t_env(variant, layout)
+    cached = tok._layout(env)
+    assert tok._layout(env) is cached
+    assert _fields(cached) == _fields(tok._make_layout(env))
+    assert bytes(tok._device_layout(env, CPU).numpy()) == bytes(cached)
+    assert tok._device_layout(env, CPU) is tok._device_layout(env, CPU)
+    terr = list(env.terrain)
+    assert list(cached.pots[:cached.n_pots]) == [s for s, t in enumerate(terr) if t == 1]
+    assert list(cached.counters[:cached.n_counters]) == [s for s, t in enumerate(terr) if t == 2]
+
+
+def test_layouts_of_two_envs_are_not_shared():
+    a, b = _t_env("v1", "cramped_room"), _t_env("v1", "cramped_room", horizon=9)
+    c = _t_env("v2", "simple")
+    assert tok._layout(a) is not tok._layout(b) and tok._layout(a) is not tok._layout(c)
+    assert (tok._layout(a).horizon, tok._layout(b).horizon) == (400, 9)
+    assert tok._layout(c).v1 == 0 and tok._layout(a).v1 == 1
+
+
+@pytest.mark.parametrize("variant,layout", LAYOUT_CASES)
+def test_cell_order_decodes_the_plain_obs(variant, layout):
+    """K1 decodes each obs record (env, observer, obs cell q) through the
+    layout's ``cell_of`` table into a state cell: from the plain env's state
+    that gives the plain env's player block and terrain channels exactly;
+    ``base_total`` is the terrain one-hots' sum over every observer's obs."""
+    from madrona_rl_envs_playground_tpu_torch.core.batch import batched_reset, batched_step
+
+    env = _t_env(variant, layout)
+    N, P, S, C = 16, env.num_players, env.size, env.num_channels
+    lay = tok._layout(env)
+    cell_of = torch.tensor(list(lay.cell_of[:S]), dtype=torch.int64)
+    terr = torch.tensor(env.terrain)[cell_of]                       # [S] by obs cell
+    bstate, out = batched_reset(env, N, device=CPU)
+    # at the start the object block holds only the terrain one-hots
+    obj0 = out.obs.reshape(N, P, S, C)[..., 5 * P:].to(torch.int64)
+    assert int(obj0.sum()) == N * lay.base_total
+    rs = np.random.RandomState(5)
+    for _ in range(12):
+        acts = torch.from_numpy(rs.randint(0, 6, size=(N, P)).astype(np.int32))
+        bstate, out = batched_step(env, bstate, acts)
+        st = bstate.env_states
+        obs = out.obs.reshape(N, P, S, C).to(torch.int64)
+        for i in range(P):
+            for r in range(P):
+                j = i if r == 0 else (r - 1 if r <= i else r)  # rank r of observer i
+                here = cell_of[None, :] == st.pos[:, j:j + 1]             # [N, S]
+                assert torch.equal(obs[:, i, :, r], here.long())
+                for d in range(4):
+                    want = here & (st.orient[:, j:j + 1] == d)
+                    assert torch.equal(obs[:, i, :, P + 4 * r + d], want.long())
+            # channels 5P..5P+4 hold only terrain one-hots in both variants
+            for k in range(5):
+                assert torch.equal(obs[:, i, :, 5 * P + k],
+                                   (terr == k + 1).long().expand(N, S))
