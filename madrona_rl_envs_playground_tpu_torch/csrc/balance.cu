@@ -17,7 +17,11 @@
 //   every step.  Episodes are allocated per step in whole-batch world order,
 //   as in csrc/cartpole.cu's K6 (one grid-wide sync per step), so the
 //   checksums equal JAX's fused_rollout with one block (block == N) and
-//   differ from JAX's at bench.py's block of 16,384.
+//   differ from JAX's at bench.py's block of 16,384.  A world's first two
+//   steps run on the full-width state, whose obs history comes from the
+//   input; from the third on, on a 24-byte carry (the packed positions
+//   word, the time, the action words, the done count and the checksum; see
+//   K8's carry below), so any int32 input stays exact.
 //
 // Layout.  Env-major, the layout the policy reads: loc [N, 2], obs
 // [N, 2, 7] (seat-major per world), time [N] and the episode LCG word [N],
@@ -29,9 +33,9 @@
 // What bounds them on an H100.  K7 moves 157 B per world-step (80 B read,
 // 77 B written) for about 60 integer operations, so device-memory bytes
 // bound it.  K8 reads and writes each world once per launch and does its
-// operations T times; its 92 B of carry per world (88 MB at 1M worlds) fits
-// neither the register file nor the L2, so each step streams it through
-// device memory, and the grid-wide sync per step adds to that.
+// operations T times, so operations bound it; its carry of 24 B a world
+// (25 MB at 1M worlds) stays in the L2, and a step moves about 40 B of it
+// per world there, beside the grid-wide sync per step.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -202,6 +206,69 @@ bb_reset_kernel(const bool* __restrict__ done_in, const int32_t* __restrict__ rn
 
 // ---- K8 ---------------------------------------------------------------------
 
+// K8's carry after a world's first two steps: one word of positions, the
+// int32 time and the action words, done count and checksum (the last three
+// are the outputs themselves), 24 B a world.  After two steps the obs
+// history of a world is fixed by its positions: each seat's t-1 and t-2
+// slots hold earlier positions + BUFFER (or the zeros of a fresh episode),
+// and seat 1's history repeats seat 0's (obs[8] = obs[4], obs[9] = obs[5],
+// obs[11] = obs[1], obs[12] = obs[2]).  The word holds l0, l1 and seat 0's
+// history o1 = obs[1], o2 = obs[2], o4 = obs[4], o5 = obs[5], a nibble each
+// (positions 0..4, history 0 or 2..6).  A done world's word holds its
+// reward's bits until phase B replaces it with the fresh episode.
+constexpr int NIB = 4;
+
+__device__ __forceinline__ int nib(uint32_t w, int i) { return (int)((w >> (NIB * i)) & 0xFu); }
+
+__device__ __forceinline__ uint32_t pack_pos(int l0, int l1, int o1, int o2, int o4, int o5) {
+  // masked: at the switch o2 and o5 may still hold launch-time values, which
+  // the next step drops (see the header)
+  const uint32_t v[6] = {(uint32_t)l0, (uint32_t)l1, (uint32_t)o1, (uint32_t)o2, (uint32_t)o4,
+                         (uint32_t)o5};
+  uint32_t w = 0u;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) w |= (v[i] & 0xFu) << (NIB * i);
+  return w;
+}
+
+// The full-width world of a packed one.
+__device__ __forceinline__ Beam unpack_pos(uint32_t w, int t) {
+  Beam b;
+  b.l0 = nib(w, 0);
+  b.l1 = nib(w, 1);
+  b.t = t;
+  const int o[OBS] = {b.l0 + BUFFER, nib(w, 2), nib(w, 3), b.l1 + BUFFER, nib(w, 4), nib(w, 5), t,
+                      b.l1 + BUFFER, nib(w, 4), nib(w, 5), b.l0 + BUFFER, nib(w, 2), nib(w, 3), t};
+#pragma unroll
+  for (int k = 0; k < OBS; ++k) b.obs[k] = o[k];
+  return b;
+}
+
+// The reward of a move to (l0, l1) with t steps left after it (transition's).
+__device__ __forceinline__ float reward(int l0, int l1, int t) {
+  const int diff = l0 - l1;
+  float r = diff == 0 ? 1.0f : __fmul_rn(-(float)abs(diff), SCALE);
+  if (l0 < 0 || l0 >= NUM_SPACES || l1 < 0 || l1 >= NUM_SPACES)
+    r = __fmul_rn(__fmul_rn(-(float)NUM_SPACES, (float)(t + 1)), SCALE);
+  return r;
+}
+
+// One step of a packed world: sets the reward and the int32 sum of the new
+// obs (the 14 values, wrapping as JAX's), and returns done.
+__device__ __forceinline__ bool packed_step(uint32_t& w, int& t, int a0, int a1, float* rew,
+                                            float* sum) {
+  const int l0 = nib(w, 0), l1 = nib(w, 1);
+  const int n0 = l0 + move(a0), n1 = l1 + move(a1);
+  t -= 1;
+  *rew = reward(n0, n1, t);
+  // both seats see n0, l0, o1, n1, l1, o4 (+ BUFFER on positions) and t
+  const uint32_t half = (uint32_t)(n0 + l0 + n1 + l1 + 4 * BUFFER + nib(w, 2) + nib(w, 4)) +
+                        (uint32_t)t;
+  *sum = (float)(int32_t)(2u * half);
+  w = pack_pos(n0, n1, l0 + BUFFER, nib(w, 2), l1 + BUFFER, nib(w, 4));
+  return n0 < 0 || n0 >= NUM_SPACES || n1 < 0 || n1 >= NUM_SPACES || t == 0;
+}
+
 __global__ void __launch_bounds__(THREADS)
 bb_rollout_kernel(const int2* __restrict__ loc_in, const int2* __restrict__ obs_in,
                   const int32_t* __restrict__ time_in, const int32_t* __restrict__ rng_in,
@@ -209,12 +276,14 @@ bb_rollout_kernel(const int2* __restrict__ loc_in, const int2* __restrict__ obs_
                   int2* __restrict__ loc, int2* __restrict__ obs, int32_t* __restrict__ time,
                   int32_t* __restrict__ rng, int32_t* __restrict__ arng,
                   int32_t* __restrict__ dcnt, float* __restrict__ chk,
-                  int64_t* __restrict__ cnt_out, float* __restrict__ rew_done,
+                  int64_t* __restrict__ cnt_out, uint32_t* __restrict__ pos,
                   int* __restrict__ totals, int N, int T, int slots) {
   __shared__ int smem[episode::SCAN_SMEM_INTS];
   cg::grid_group grid = cg::this_grid();
   const int G = gridDim.x;
-  // the outputs are the working state, each world touched only by its owner
+  // the outputs are the working state, each world touched only by its owner:
+  // the full-width loc, obs and time for the first two steps, whose obs
+  // history comes from the input, then the packed word and time
   for (int s = 0; s < slots; ++s) {
     const int n = world(slots, s);
     if (n < N) {
@@ -228,6 +297,7 @@ bb_rollout_kernel(const int2* __restrict__ loc_in, const int2* __restrict__ obs_
   }
   uint32_t base = (uint32_t)cnt_in[0];
   for (int t = 0; t < T; ++t) {
+    const bool wide = t < 2;
     int* step_totals = totals + (t & 1) * G;
     // phase A: actions, step, done; live worlds are final for this step
     uint32_t dmask = 0u;
@@ -240,16 +310,31 @@ bb_rollout_kernel(const int2* __restrict__ loc_in, const int2* __restrict__ obs_
         const uint32_t w1 = episode::lcg_next((uint32_t)arng[N + n]);
         arng[n] = (int32_t)w0;
         arng[N + n] = (int32_t)w1;
-        Beam b = load(loc, obs, time, n);
-        float r;
-        done = transition(b, action(w0), action(w1), &r);
-        if (done) {
-          rew_done[n] = r;  // phase B adds it after the fresh obs
+        float r, sum;
+        if (wide) {
+          Beam b = load(loc, obs, time, n);
+          done = transition(b, action(w0), action(w1), &r);
+          if (!done) store(loc, obs, time, n, b);
+          sum = obs_sum(b);
         } else {
-          store(loc, obs, time, n, b);
-          chk[n] = __fadd_rn(__fadd_rn(__fadd_rn(chk[n], obs_sum(b)), r), 0.0f);
+          uint32_t w = t == 2 ? pack_pos(loc[n].x, loc[n].y, obs[(size_t)n * (OBS / 2)].y,
+                                         obs[(size_t)n * (OBS / 2) + 1].x,
+                                         obs[(size_t)n * (OBS / 2) + 2].x,
+                                         obs[(size_t)n * (OBS / 2) + 2].y)
+                              : pos[n];
+          int tt = time[n];
+          done = packed_step(w, tt, action(w0), action(w1), &r, &sum);
+          if (!done) {
+            pos[n] = w;
+            time[n] = tt;
+          }
         }
-        dcnt[n] += done;
+        if (done) {
+          pos[n] = __float_as_uint(r);  // phase B adds it after the fresh obs
+          dcnt[n] += 1;
+        } else {
+          chk[n] = __fadd_rn(__fadd_rn(__fadd_rn(chk[n], sum), r), 0.0f);
+        }
       }
       dmask |= (uint32_t)done << s;
       count += __syncthreads_count(done);
@@ -268,13 +353,25 @@ bb_rollout_kernel(const int2* __restrict__ loc_in, const int2* __restrict__ obs_
       if (done) {
         uint32_t w;
         const Beam b = fresh(next + (uint32_t)rank, &w);
-        store(loc, obs, time, n, b);
+        const float r = __uint_as_float(pos[n]);
+        if (wide) {
+          store(loc, obs, time, n, b);
+        } else {
+          pos[n] = pack_pos(b.l0, b.l1, 0, 0, 0, 0);
+          time[n] = b.t;
+        }
         rng[n] = (int32_t)w;
-        chk[n] = __fadd_rn(__fadd_rn(__fadd_rn(chk[n], obs_sum(b)), rew_done[n]), 1.0f);
+        chk[n] = __fadd_rn(__fadd_rn(__fadd_rn(chk[n], obs_sum(b)), r), 1.0f);
       }
       next += (uint32_t)total;
     }
     base += all;
+  }
+  if (T > 2) {  // the last packed words back into loc and obs
+    for (int s = 0; s < slots; ++s) {
+      const int n = world(slots, s);
+      if (n < N) store(loc, obs, time, n, unpack_pos(pos[n], time[n]));
+    }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) cnt_out[0] = (int64_t)base;
 }
@@ -312,7 +409,7 @@ int bb_step(const int32_t* loc_in, const int32_t* obs_in, const int32_t* time_in
 int bb_rollout(const int32_t* loc_in, const int32_t* obs_in, const int32_t* time_in,
                const int32_t* rng_in, const int32_t* arng_in, const int64_t* cnt_in,
                int32_t* loc, int32_t* obs, int32_t* time, int32_t* rng, int32_t* arng,
-               int32_t* dcnt, float* chk, int64_t* cnt_out, float* rew_done, int* scratch,
+               int32_t* dcnt, float* chk, int64_t* cnt_out, uint32_t* pos, int* scratch,
                int N, int T, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -328,7 +425,7 @@ int bb_rollout(const int32_t* loc_in, const int32_t* obs_in, const int32_t* time
   void* args[] = {(void*)&loc_in2, (void*)&obs_in2, (void*)&time_in, (void*)&rng_in,
                   (void*)&arng_in, (void*)&cnt_in,  (void*)&loc2,    (void*)&obs2,
                   (void*)&time,    (void*)&rng,     (void*)&arng,    (void*)&dcnt,
-                  (void*)&chk,     (void*)&cnt_out, (void*)&rew_done, (void*)&scratch,
+                  (void*)&chk,     (void*)&cnt_out, (void*)&pos,     (void*)&scratch,
                   (void*)&N,       (void*)&T,       (void*)&slots};
   err = cudaLaunchCooperativeKernel((const void*)bb_rollout_kernel, dim3(blocks), dim3(THREADS),
                                     args, 0, (cudaStream_t)stream);

@@ -1,6 +1,6 @@
 // World-order episode allocation and the TEA+LCG episode stream, shared by
-// the kernels of the envs whose resets draw an episode index (csrc/cartpole.cu,
-// csrc/balance.cu).
+// the kernels of the envs whose resets draw an episode index
+// (csrc/cartpole.cu, csrc/balance.cu, csrc/acrobot.cu, csrc/hanabi.cu).
 //
 // The JAX package hands world w that resets at a step the episode index
 // `counter + (number of done worlds before w in the batch)` (core/batch.py's

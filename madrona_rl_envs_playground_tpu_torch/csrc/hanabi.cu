@@ -14,18 +14,23 @@
 //   refreshed seats' encodes (the others' bytes are copied from the input
 //   buffers).  The launch boundary is the barrier between the two halves of
 //   the scan.
-// K4 `hk_rollout_kernel` replaces the persistent rollout Pallas kernel
-//   ops/hanabi_megakernel.py::_build_rollout_kernel (fused_rollout): T steps
-//   in one cooperative launch; each world's action is the
-//   ((u24 * L) >> 24)-th of the acting seat's L legal moves, u24 = bits
-//   8..31 of the world's advanced action-LCG word (sample_legal); each seat
-//   carries the sum of its obs, own and mask bytes, started from the
-//   launch-time buffers and re-encoded only where that seat is refreshed,
-//   and the checksum adds P * reward + done + both seats' sums every step.
-//   Episodes are allocated per step in whole-batch world order (a grid-wide
-//   sync per step, as csrc/cartpole.cu's K6), which equals T applications
-//   of K3 and JAX's fused_rollout with one block; JAX's multi-block grids
-//   allocate block by block.
+// K4 `hk_rollout_onchip_kernel<C, R>` and `hk_rollout_kernel<C, R>` replace
+//   the persistent rollout Pallas kernel
+//   ops/hanabi_megakernel.py::_build_rollout_kernel (fused_rollout): T
+//   steps in one cooperative launch; each world's action is the
+//   ((u24 * L) >> 24)-th of the acting seat's L legal moves, u24 =
+//   bits 8..31 of the world's advanced action-LCG word (sample_legal); each
+//   seat carries the sum of its obs, own and mask bytes, started from the
+//   launch-time buffers and recomputed in closed form (seat_sum, section by
+//   section; ops/hanabi.py::seat_sums_plain is the same formula) only where
+//   that seat is refreshed, and the checksum adds P * reward + done + both
+//   seats' sums every step.  Episodes are allocated per step in
+//   whole-batch world order (a grid-wide sync per step, as
+//   csrc/cartpole.cu's K6), which equals T applications of K3 and JAX's
+//   fused_rollout with one block; JAX's multi-block grids allocate block by
+//   block.  Instantiated for the 2-player configs full, small and
+//   very_small (<5, 5>, <2, 5>, <1, 5>); other configs are refused with
+//   ERR_BAD_CONFIG.
 // K11 `hk_mask_kernel` replaces ops/hanabi_pallas.py::_mask_kernel
 //   (legal_moves_pallas): every seat's legal-move mask from the hand cards,
 //   hand sizes and info tokens, one thread per (world, seat).
@@ -40,9 +45,36 @@
 // coalesced; block b owns a contiguous run of slots * THREADS worlds
 // (episode_scan.cuh's `world`).  The scalars and the hands of a world live
 // in registers during a step (struct Game, indexed only by unrolled loop
-// counters); the deck, discards and fireworks stay in device memory.  The
-// encodes go straight into the env-major [N, P, bits] buffers the policy
-// reads, packed into aligned 32-bit stores (ByteSink).
+// counters).  K3's encodes go straight into the env-major [N, P, bits]
+// buffers the policy reads, packed into aligned 32-bit stores (ByteSink).
+//
+// K4's carry.  At launch K4 transcodes the [rows, N] state into one record
+// per world (Rec: 192 B in the full config, 144 small, 128 very_small) and
+// back at the end: a 112-byte header of the plausible masks, the episode
+// and action LCG words, the two seat sums, the checksum and done count as
+// words, then every other scalar and hand value, and the fireworks' and
+// discards' share of a seat sum, as int8; after it the deck, fireworks and
+// discards as int8.  Where every block of the grid is resident with its
+// records in shared memory (131,072 full worlds: 2 blocks of 512 records an
+// SM, 208-byte stride), the records stay on chip (ONCHIP,
+// hk_rollout_onchip_kernel); otherwise (hk_rollout_kernel) they lie in
+// device memory (25 MB at 131,072 full worlds, within the L2).  A
+// step loads and stores a world's header with 16-byte accesses and touches
+// its board a byte at a time.  A block lists the worlds that end in a step
+// in shared memory and deals them one per thread from its first threads,
+// so that only the warps holding a deal run one.
+//
+// K4's envelope.  The int8 fields hold exactly the values a game started by
+// init_packed reaches through fused_step and fused_rollout: cards 0..C*R-1,
+// discards 0..copies, fireworks 0..R, deck size 0..M-D, info 0..max_info+C,
+// life 0..max_life, current player 0..1, turns 0..P, score 0..C*R, hand
+// sizes 0..H, known colour -1..C-1, known rank -1..R-1 (every step's
+// last-move fields are written before K4 reads them; the masks and LCG
+// words are 32-bit).  A game started inside keeps every field within int8
+// until it ends: it makes at most M-D+P draws and discards and C
+// completions, so no count passes 127.  The
+// wrapper refuses a state outside the envelope before launch
+// (ops/hanabi.py::envelope_violations), so nothing is wrapped.
 //
 // Exactness.  The only float work is the draw position int32(f32(size) *
 // u): u = (word & 0xFFFFFF) * 2^-24 is exact, __fmul_rn rounds the product
@@ -55,12 +87,12 @@
 // and done: about 3.5 KB per world-step, against a few hundred integer
 // operations, so device-memory bytes bound it; its per-thread rows of 658 B
 // are written 658 B apart across a warp (uncoalesced), which is the first
-// thing to fix.  K4 reads and writes the state once per launch but its
-// carry (552 B per world) does not fit in registers at useful occupancy, so
-// each step loads and stores the touched part of it; its bound is
-// operations, which a sum taken section by section keeps to a few hundred
-// per world-step (this encode still counts bit by bit).  K11 reads 52 B and
-// writes 40 B per world.
+// thing to fix.  K4 reads and writes the state once per launch and does a
+// few hundred integer operations per world-step (the step, the legal draw,
+// one refreshed seat's closed-form sum), so operations bound it; in
+// practice the grid-wide sync and the scan of the block counts each step,
+// and the latency of a world's dependent loads, take most of its time.
+// K11 reads 52 B and writes 40 B per world.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -102,15 +134,32 @@ bool make_cfg(const int* in, int n, Cfg* c) {
   return c->CR <= 32 && c->A <= 32 && c->deck_bits >= 0 && c->rows > 0;
 }
 
-__device__ __forceinline__ int copies(const Cfg& c, int r) {
-  return r == 0 ? 3 : (r == c.R - 1 ? 1 : 2);
-}
+// Copies of each card of rank r among R ranks: 3 of rank 0, 1 of the top
+// rank, 2 of the others.
+__host__ __device__ constexpr int copies(int r, int R) { return r == 0 ? 3 : (r == R - 1 ? 1 : 2); }
 
-// One world's column of the [rows, N] state.
+// The sizes a kernel reads: compile-time constants in K4's instantiations
+// (<C_, R_> > 0: the section loops unroll and / and % by R fold), the
+// config's at run time in K3 and K11 (<0, 0>).
+template <int C_, int R_>
+struct Dims {
+  int C, R, CR;
+  __device__ __forceinline__ explicit Dims(const Cfg& c)
+      : C(C_ > 0 ? C_ : c.C), R(R_ > 0 ? R_ : c.R), CR((C_ > 0 ? C_ : c.C) * (R_ > 0 ? R_ : c.R)) {}
+};
+
+// One world's column of the [rows, N] state, and the board (deck, discards,
+// fireworks) that transition and deal read and write through it.
 struct Col {
   int32_t* p;
   int N;
+  const Cfg* c;
   __device__ __forceinline__ int32_t& operator[](int row) const { return p[(size_t)row * N]; }
+  __device__ __forceinline__ int fw(int k) const { return (*this)[c->r_fw + k]; }
+  __device__ __forceinline__ void set_fw(int k, int v) const { (*this)[c->r_fw + k] = v; }
+  __device__ __forceinline__ void add_discard(int card) const { (*this)[c->r_disc + card] += 1; }
+  __device__ __forceinline__ int deck(int i) const { return (*this)[c->r_deck + i]; }
+  __device__ __forceinline__ void set_deck(int i, int v) const { (*this)[c->r_deck + i] = v; }
 };
 
 // The scalars and hands of one world, in registers.
@@ -159,13 +208,15 @@ __device__ __forceinline__ void store_game(const Cfg& c, Col col, const Game& g)
 
 // ---- the game step (envs/hanabi.py::transition, _remove_from_hand) --------
 
-// One step of world `col` with move `uid` of the current player; returns
-// done and the score delta in *rew.
-__device__ bool transition(const Cfg& c, Col col, Game& g, int uid, int* rew) {
+// One step of the world on board `b` with move `uid` of the current player;
+// returns done and the score delta in *rew.
+template <int C_, int R_, class Board>
+__device__ __forceinline__ bool transition(const Cfg& c, const Board& b, Game& g, int uid, int* rew) {
+  const Dims<C_, R_> d(c);
   int* s = g.s;
   s[TURNS] -= s[DS] == 0;
   const int agent = s[CUR];
-  const int rc_base = 2 * H, rr_base = 2 * H + (P - 1) * c.C;
+  const int rc_base = 2 * H, rr_base = 2 * H + (P - 1) * d.C;
   const bool is_discard = uid < H, is_play = uid >= H && uid < 2 * H;
   const bool is_rc = uid >= rc_base && uid < rr_base, is_rr = uid >= rr_base;
   const bool took = is_discard || is_play, reveal = is_rc || is_rr;
@@ -177,15 +228,15 @@ __device__ bool transition(const Cfg& c, Col col, Game& g, int uid, int* rew) {
 #pragma unroll
   for (int h = 0; h < H; ++h)
     if ((at >> h) & 1u) card = SEAT(g.hc, agent, h);
-  const int card_color = card / c.R, card_rank = card % c.R;
+  const int card_color = card / d.R, card_rank = card % d.R;
 
   // discard and play
-  const int fwc = col[c.r_fw + card_color];
+  const int fwc = b.fw(card_color);
   const bool success = is_play && fwc == card_rank;
-  const bool completed = success && fwc + 1 == c.R;
+  const bool completed = success && fwc + 1 == d.R;
   const bool failed = is_play && !success;
-  if (is_discard || failed) col[c.r_disc + card] += 1;
-  if (success) col[c.r_fw + card_color] = fwc + 1;
+  if (is_discard || failed) b.add_discard(card);
+  if (success) b.set_fw(card_color, fwc + 1);
   s[INFO] += (int)is_discard + (int)completed;
   s[LIFE] -= (int)failed;
 
@@ -194,10 +245,10 @@ __device__ bool transition(const Cfg& c, Col col, Game& g, int uid, int* rew) {
   const int rev_rank = is_rr ? uid - rr_base : 0;
   const int target = (agent + 1) % P;
   s[INFO] -= (int)reveal;
-  const uint32_t color_mask = ((1u << c.R) - 1u) << (rev_color * c.R);
+  const uint32_t color_mask = ((1u << d.R) - 1u) << (rev_color * d.R);
   uint32_t rank_mask = 0u;
-  for (int i = 0; i < c.R; ++i)
-    if (i * c.R + rev_rank < 32) rank_mask |= 1u << (i * c.R + rev_rank);
+  for (int i = 0; i < d.R; ++i)
+    if (i * d.R + rev_rank < 32) rank_mask |= 1u << (i * d.R + rev_rank);
   int reveal_bits = 0;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -205,8 +256,8 @@ __device__ bool transition(const Cfg& c, Col col, Game& g, int uid, int* rew) {
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       const bool live = h < g.hs[p];
-      const bool mc = live && g.hc[p][h] / c.R == rev_color;
-      const bool mr = live && g.hc[p][h] % c.R == rev_rank;
+      const bool mc = live && g.hc[p][h] / d.R == rev_color;
+      const bool mr = live && g.hc[p][h] % d.R == rev_rank;
       if (tgt && is_rc) g.hp[p][h] &= mc ? color_mask : ~color_mask;
       if (tgt && is_rr) g.hp[p][h] &= mr ? rank_mask : ~rank_mask;
       if (tgt && is_rc && mc) g.kc[p][h] = rev_color;
@@ -232,8 +283,8 @@ __device__ bool transition(const Cfg& c, Col col, Game& g, int uid, int* rew) {
   if (took && ds > 0) {
     const uint32_t v1 = episode::lcg_next((uint32_t)s[RNG]);
     const int loc = __float2int_rz(__fmul_rn((float)ds, episode::unif(v1)));
-    const int drawn = col[c.r_deck + loc];
-    col[c.r_deck + loc] = col[c.r_deck + ds - 1];
+    const int drawn = b.deck(loc);
+    b.set_deck(loc, b.deck(ds - 1));
     s[DS] = ds - 1;
     s[RNG] = (int)v1;
 #pragma unroll
@@ -242,7 +293,7 @@ __device__ bool transition(const Cfg& c, Col col, Game& g, int uid, int* rew) {
       for (int h = 0; h < H; ++h) {
         if (p == agent && ((at >> h) & 1u)) {
           g.hc[p][h] = drawn;
-          g.hp[p][h] = (uint32_t)((1ull << c.CR) - 1ull);
+          g.hp[p][h] = (uint32_t)((1ull << d.CR) - 1ull);
           g.kc[p][h] = -1;
           g.kr[p][h] = -1;
         }
@@ -269,11 +320,11 @@ __device__ bool transition(const Cfg& c, Col col, Game& g, int uid, int* rew) {
 
   // checkDone
   int fwsum = 0;
-  for (int k = 0; k < c.C; ++k) fwsum += col[c.r_fw + k];
+  for (int k = 0; k < d.C; ++k) fwsum += b.fw(k);
   const int score = s[LIFE] > 0 ? fwsum : 0;
   *rew = score - s[SCORE];
   s[SCORE] = score;
-  return s[LIFE] < 1 || score >= c.CR || s[TURNS] <= 0;
+  return s[LIFE] < 1 || score >= d.CR || s[TURNS] <= 0;
 }
 
 // ---- the deal (envs/hanabi.py::init_core) ---------------------------------
@@ -283,15 +334,47 @@ __device__ __forceinline__ int orig_card(const Cfg& c, int loc) {
   const int rem = loc % c.cpc;
   int rank = 0, acc = 0;
   for (int r = 0; r < c.R; ++r) {
-    acc += copies(c, r);
+    acc += copies(r, c.R);
     if (rem >= acc) rank = r + 1;
   }
   return (loc / c.cpc) * c.R + rank;
 }
 
-// A fresh game for episode `idx`.  The D swap draws of the deal are
-// resolved in closed form: positions from D LCG words of the TEA seed, then
-// a last-write-wins cascade over the touched positions.
+// The rest of a fresh game: hands' knowledge, sizes and the scalars.
+__device__ __forceinline__ void fresh_scalars(const Cfg& c, Game& g, uint32_t v) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      g.hp[p][h] = (uint32_t)((1ull << c.CR) - 1ull);
+      g.kc[p][h] = -1;
+      g.kr[p][h] = -1;
+    }
+    g.hs[p] = H;
+  }
+  int* s = g.s;
+  s[DS] = c.M - D;
+  s[INFO] = c.max_info;
+  s[LIFE] = c.max_life;
+  s[CUR] = 0;
+  s[TURNS] = P;
+  s[SCORE] = 0;
+  s[LMM] = M_INVALID;
+  s[LMP] = -1;
+  s[LMT] = -1;
+  s[LMCI] = -1;
+  s[LMSC] = 0;
+  s[LMIT] = 0;
+  s[LMC] = -1;
+  s[LMR] = -1;
+  s[LMRB] = 0;
+  s[RNG] = (int)v;
+}
+
+// A fresh game for episode `idx` in the world's column (K3).  The D swap
+// draws of the deal are resolved in closed form: positions from D LCG words
+// of the TEA seed, then a last-write-wins cascade over the touched
+// positions.
 __device__ void deal(const Cfg& c, Col col, Game& g, uint32_t idx) {
   uint32_t v = episode::tea_seed(idx);
   int locs[D], moved[D];
@@ -328,33 +411,7 @@ __device__ void deal(const Cfg& c, Col col, Game& g, uint32_t idx) {
   }
   for (int k = 0; k < c.CR; ++k) col[c.r_disc + k] = 0;
   for (int k = 0; k < c.C; ++k) col[c.r_fw + k] = 0;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      g.hp[p][h] = (uint32_t)((1ull << c.CR) - 1ull);
-      g.kc[p][h] = -1;
-      g.kr[p][h] = -1;
-    }
-    g.hs[p] = H;
-  }
-  int* s = g.s;
-  s[DS] = c.M - D;
-  s[INFO] = c.max_info;
-  s[LIFE] = c.max_life;
-  s[CUR] = 0;
-  s[TURNS] = P;
-  s[SCORE] = 0;
-  s[LMM] = M_INVALID;
-  s[LMP] = -1;
-  s[LMT] = -1;
-  s[LMCI] = -1;
-  s[LMSC] = 0;
-  s[LMIT] = 0;
-  s[LMC] = -1;
-  s[LMR] = -1;
-  s[LMRB] = 0;
-  s[RNG] = (int)v;
+  fresh_scalars(c, g, v);
 }
 
 // ---- the encodes (envs/hanabi.py::_encode_seat, legal_mask) ---------------
@@ -362,36 +419,49 @@ __device__ void deal(const Cfg& c, Col col, Game& g, uint32_t idx) {
 // Bit k of the result: move k is legal for a seat whose hand holds `size`
 // live cards, whose partner holds `pc` (dead slots included), with `info`
 // info tokens.
+template <int C_, int R_>
 __device__ __forceinline__ uint32_t legal_bits(const Cfg& c, int size, const int (&pc)[H],
                                                int info) {
+  const Dims<C_, R_> d(c);
   uint32_t bits = 0u;
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     if (h < size && info < c.max_info) bits |= 1u << h;
     if (h < size) bits |= 1u << (H + h);
   }
-  if (info > 0) {
-    for (int k = 0; k < c.C; ++k) {
+  if (info > 0 && C_ > 0) {
+    // K4's envelope holds every card in [0, C*R): one bit per card's colour
+    // and rank
+    uint32_t colors = 0u, ranks = 0u;
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      colors |= 1u << (pc[h] / d.R);
+      ranks |= 1u << (pc[h] % d.R);
+    }
+    bits |= colors << (2 * H) | ranks << (2 * H + d.C);
+  } else if (info > 0) {
+    for (int k = 0; k < d.C; ++k) {
       bool any = false;
 #pragma unroll
-      for (int h = 0; h < H; ++h) any |= pc[h] / c.R == k;
+      for (int h = 0; h < H; ++h) any |= pc[h] / d.R == k;
       if (any) bits |= 1u << (2 * H + k);
     }
-    for (int r = 0; r < c.R; ++r) {
+    for (int r = 0; r < d.R; ++r) {
       bool any = false;
 #pragma unroll
-      for (int h = 0; h < H; ++h) any |= pc[h] % c.R == r;
-      if (any) bits |= 1u << (2 * H + c.C + r);
+      for (int h = 0; h < H; ++h) any |= pc[h] % d.R == r;
+      if (any) bits |= 1u << (2 * H + d.C + r);
     }
   }
   return bits;
 }
 
+template <int C_, int R_>
 __device__ __forceinline__ uint32_t seat_legal(const Cfg& c, const Game& g, int a) {
   int pc[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) pc[h] = SEAT(g.hc, 1 - a, h);
-  return legal_bits(c, a == 0 ? g.hs[0] : g.hs[1], pc, g.s[INFO]);
+  return legal_bits<C_, R_>(c, a == 0 ? g.hs[0] : g.hs[1], pc, g.s[INFO]);
 }
 
 // Writes 0/1 bytes from `dst` on, packed into aligned 32-bit stores once
@@ -422,12 +492,6 @@ struct ByteSink {
   }
 };
 
-// Counts the set bits instead of writing them (K4's per-seat sums).
-struct SumSink {
-  int sum = 0;
-  __device__ __forceinline__ void put(bool b) { sum += (int)b; }
-};
-
 // Seat a's observation bits, in envs/hanabi.py::_encode_seat's order.
 template <class Sink>
 __device__ void encode_obs(const Cfg& c, Col col, const Game& g, int a, Sink& o) {
@@ -453,7 +517,7 @@ __device__ void encode_obs(const Cfg& c, Col col, const Game& g, int a, Sink& o)
   // discards: card id k's count against thresholds 0..copies-1
   for (int k = 0; k < c.CR; ++k) {
     const int d = col[c.r_disc + k];
-    const int n = copies(c, k % c.R);
+    const int n = copies(k % c.R, c.R);
     for (int i = 0; i < n; ++i) o.put(d > i);
   }
   // last action
@@ -520,12 +584,6 @@ __device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src, int
   for (; i < len; ++i) dst[i] = src[i];
 }
 
-__device__ __forceinline__ int sum_bytes(const int8_t* src, int len) {
-  int s = 0;
-  for (int i = 0; i < len; ++i) s += src[i];
-  return s;
-}
-
 // ---- K3 ---------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
@@ -537,12 +595,12 @@ hk_step_kernel(const Cfg c, const int32_t* __restrict__ st_in, const int32_t* __
     const int n = world(slots, s);
     bool done = false;
     if (n < N) {
-      const Col in{const_cast<int32_t*>(st_in) + n, N}, out{st_out + n, N};
+      const Col in{const_cast<int32_t*>(st_in) + n, N, &c}, out{st_out + n, N, &c};
       for (int r = 0; r < c.r_scal; ++r) out[r] = in[r];  // deck, discards, fireworks
       Game g;
       load_game(c, in, g);
       int rew;
-      done = transition(c, out, g, act[(size_t)n * P + g.s[CUR]], &rew);
+      done = transition<0, 0>(c, out, g, act[(size_t)n * P + g.s[CUR]], &rew);
       store_game(c, out, g);  // the reset kernel deals the done worlds
       rew_out[n] = rew;
       done_out[n] = done;
@@ -569,7 +627,7 @@ hk_reset_kernel(const Cfg c, const bool* __restrict__ done_in, const int64_t* __
     int total;
     const int rank = episode::block_rank(done, smem, &total);
     if (n < N) {
-      const Col col{st + n, N};
+      const Col col{st + n, N, &c};
       Game g;
       load_game(c, col, g);
       if (done) {
@@ -588,7 +646,7 @@ hk_reset_kernel(const Cfg c, const bool* __restrict__ done_in, const int64_t* __
           so.flush();
           encode_own(c, g, a, sw);
           sw.flush();
-          encode_mask(c, seat_legal(c, g, a), sm);
+          encode_mask(c, seat_legal<0, 0>(c, g, a), sm);
           sm.flush();
         } else {
           copy_bytes(o, reinterpret_cast<const uint8_t*>(obs_in) + row * c.obs, c.obs);
@@ -605,67 +663,365 @@ hk_reset_kernel(const Cfg c, const bool* __restrict__ done_in, const int64_t* __
 
 // ---- K4 ---------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-hk_rollout_kernel(const Cfg c, const int32_t* __restrict__ st_in,
-                  const int8_t* __restrict__ obs_in, const int8_t* __restrict__ own_in,
-                  const bool* __restrict__ mask_in, const int32_t* __restrict__ arng_in,
-                  const int64_t* __restrict__ cnt_in, int32_t* __restrict__ st,
-                  int32_t* __restrict__ arng, int32_t* __restrict__ dcnt,
-                  int32_t* __restrict__ chk, int64_t* __restrict__ cnt_out,
-                  int32_t* __restrict__ seat_sum, int* __restrict__ totals, int N, int T,
-                  int slots) {
+// K4's carry: one record per world, world-major, so a thread loads its world
+// with 16-byte loads (the launch transcodes the [rows, N] state into it and
+// back).  Words 0..15 and bytes 64..111 are loaded and stored every step;
+// the board after them is read and written a byte at a time (a draw, a
+// discard, a firework) and its fireworks and discards read as words for the
+// seat sums.
+constexpr int W_HP = 0;          // P * H plausible masks
+constexpr int W_RNG = P * H;     // the episode LCG word
+constexpr int W_SUM = W_RNG + 1; // the two seats' sums of obs, own and mask bytes
+constexpr int W_ARNG = W_SUM + P, W_CHK = W_ARNG + 1, W_DCNT = W_CHK + 1;
+constexpr int B_SCAL = 4 * (W_DCNT + 1);  // DS .. LMRB, one int8 each
+constexpr int B_HS = B_SCAL + NSCAL - 1;  // hand sizes
+constexpr int B_HC = B_HS + P, B_KC = B_HC + P * H, B_KR = B_KC + P * H;
+// the fireworks' and discards' share of every seat sum (their sections of
+// encode_obs), kept up to date by the board as a step changes them
+constexpr int B_FD = B_KR + P * H;
+constexpr int GAME_WORDS = (B_FD + 1 + 15) / 16 * 4;  // 28: bytes 0..111
+constexpr int B_BOARD = 4 * GAME_WORDS;
+static_assert(B_SCAL == 64 && B_BOARD == 112, "the record's header is 112 bytes");
+
+template <int C, int R>
+struct Rec {
+  static constexpr int CR = C * R;
+  static constexpr int M = C * (R == 1 ? 3 : 2 * R);  // the cards of a colour: sum of copies
+  static constexpr int A = 2 * H + (P - 1) * (C + R);
+  // the deck, then the fireworks and discards
+  static constexpr int B_DECK = B_BOARD, B_FW = B_DECK + M, B_DISC = B_FW + C;
+  static constexpr int BYTES = (B_DISC + CR + 15) / 16 * 16;
+  static constexpr int DECK_VECS = (M + 15) / 16;  // a fresh deck's 16-byte stores
+  static_assert(B_DECK + 16 * DECK_VECS <= BYTES, "a fresh deck's stores lie in the record");
+  // the stride of the records in shared memory: an odd number of 16-byte
+  // words, so that the 16-byte accesses of 8 threads hit 32 different banks
+  static constexpr int STRIDE = BYTES / 16 % 2 ? BYTES : BYTES + 16;
+  static_assert(CR <= 32 && A <= 32, "cards and moves fit 32-bit masks");
+};
+
+// The record's words beside the Game.
+struct Extra {
+  int sum[P];
+  uint32_t arng;
+  int chk, dcnt;
+  int fd;  // byte B_FD
+};
+
+__device__ __forceinline__ int rec_byte(const uint32_t* w, int off) {
+  return (int)(int8_t)(w[off >> 2] >> (8 * (off & 3)));
+}
+
+__device__ __forceinline__ void load_rec(const uint8_t* rec, Game& g, Extra& e) {
+  uint32_t w[GAME_WORDS];
+#pragma unroll
+  for (int i = 0; i < GAME_WORDS / 4; ++i) {
+    const uint4 v = reinterpret_cast<const uint4*>(rec)[i];
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      g.hp[p][h] = w[W_HP + p * H + h];
+      g.hc[p][h] = rec_byte(w, B_HC + p * H + h);
+      g.kc[p][h] = rec_byte(w, B_KC + p * H + h);
+      g.kr[p][h] = rec_byte(w, B_KR + p * H + h);
+    }
+    g.hs[p] = rec_byte(w, B_HS + p);
+    e.sum[p] = (int)w[W_SUM + p];
+  }
+#pragma unroll
+  for (int k = 0; k < NSCAL - 1; ++k) g.s[k] = rec_byte(w, B_SCAL + k);
+  g.s[RNG] = (int)w[W_RNG];
+  e.arng = w[W_ARNG];
+  e.chk = (int)w[W_CHK];
+  e.dcnt = (int)w[W_DCNT];
+  e.fd = rec_byte(w, B_FD);
+}
+
+// Word i of a record's header (constant i: the branches fold away).
+__device__ __forceinline__ uint32_t rec_word(const Game& g, const Extra& e, int i) {
+  if (i < W_RNG) return g.hp[i / H][i % H];
+  if (i == W_RNG) return (uint32_t)g.s[RNG];
+  if (i < W_ARNG) return (uint32_t)e.sum[i - W_SUM];
+  if (i == W_ARNG) return e.arng;
+  if (i == W_CHK) return (uint32_t)e.chk;
+  if (i == W_DCNT) return (uint32_t)e.dcnt;
+  uint32_t w = 0u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int off = 4 * i + b;
+    int v = 0;
+    if (off < B_HS) v = g.s[off - B_SCAL];
+    else if (off < B_HC) v = g.hs[off - B_HS];
+    else if (off < B_KC) v = g.hc[(off - B_HC) / H][(off - B_HC) % H];
+    else if (off < B_KR) v = g.kc[(off - B_KC) / H][(off - B_KC) % H];
+    else if (off < B_FD) v = g.kr[(off - B_KR) / H][(off - B_KR) % H];
+    else if (off == B_FD) v = e.fd;
+    w |= (uint32_t)(uint8_t)v << (8 * b);
+  }
+  return w;
+}
+
+// Stores the header 16 bytes at a time, each as soon as its words are made.
+__device__ __forceinline__ void store_rec(uint8_t* rec, const Game& g, const Extra& e) {
+#pragma unroll
+  for (int i = 0; i < GAME_WORDS / 4; ++i)
+    reinterpret_cast<uint4*>(rec)[i] =
+        make_uint4(rec_word(g, e, 4 * i), rec_word(g, e, 4 * i + 1), rec_word(g, e, 4 * i + 2),
+                   rec_word(g, e, 4 * i + 3));
+}
+
+// The board of a record, for transition; a firework or discard it changes
+// moves the record's fireworks-and-discards share *fd of the seat sums.
+template <int C, int R>
+struct PackedBoard {
+  uint8_t* r;
+  int* fd;
+  __device__ __forceinline__ int fw(int k) const { return (int8_t)r[Rec<C, R>::B_FW + k]; }
+  __device__ __forceinline__ void set_fw(int k, int v) const {
+    const int f = fw(k);  // a firework counts where 1 <= f <= R
+    *fd += (v >= 1 && v <= R) - (f >= 1 && f <= R);
+    r[Rec<C, R>::B_FW + k] = (uint8_t)v;
+  }
+  __device__ __forceinline__ void add_discard(int card) const {
+    const int d = (int8_t)r[Rec<C, R>::B_DISC + card];  // counts up to its copies
+    *fd += d >= 0 && d < copies(card % R, R);
+    r[Rec<C, R>::B_DISC + card] = (uint8_t)(d + 1);
+  }
+  __device__ __forceinline__ int deck(int i) const { return (int8_t)r[Rec<C, R>::B_DECK + i]; }
+  __device__ __forceinline__ void set_deck(int i, int v) const {
+    r[Rec<C, R>::B_DECK + i] = (uint8_t)v;
+  }
+};
+
+__device__ __forceinline__ int clamp_to(int x, int hi) { return min(max(x, 0), hi); }
+
+// The fireworks' and discards' share of a seat sum, from the record's board:
+// a firework counts where 1 <= f <= R, a discard count up to its copies.
+template <int C, int R>
+__device__ int fd_share(const uint8_t* rec) {
+  using L = Rec<C, R>;
+  int sum = 0;
+  for (int k = 0; k < C; ++k) {
+    const int f = (int8_t)rec[L::B_FW + k];
+    sum += f >= 1 && f <= R;
+  }
+  for (int k = 0; k < L::CR; ++k) sum += clamp_to((int8_t)rec[L::B_DISC + k], copies(k % R, R));
+  return sum;
+}
+
+// A seat's sum of obs, own-hand and mask bytes in closed form, section by
+// section of encode_obs, encode_own and encode_mask (ops/hanabi.py's
+// seat_sums_plain is the same formula): a one-hot block adds 1 where its
+// value lies in range, a thermometer the clamped count.  The reference's
+// quirks stay: the plausible bit of the knowledge section is bit `offset`
+// broadcast over the CR bits of a slot, rel_target is taken even for
+// LMT = -1 (the reveal flag gates it), and the reveal legality reads dead
+// slots.  Most sections are the same for both seats (seat_common); the
+// rest depend on the observer (seat_sum).  fd: the fireworks' and
+// discards' share (fd_share).
+template <int C, int R>
+__device__ __forceinline__ int seat_common(const Cfg& c, const Game& g, int fd) {
+  using L = Rec<C, R>;
+  const int* s = g.s;
+  int sum = fd;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    // the partner's live cards (obs) and the own ones (own hand) cover both
+    // seats' hands, "hand not full" both seats, and the knowledge section's
+    // colour and rank blocks both seats' slots
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const bool live = h < g.hs[p];
+      sum += live && (unsigned)g.hc[p][h] < (unsigned)L::CR;
+      sum += live && (unsigned)g.kc[p][h] < (unsigned)C;
+      sum += live && (unsigned)g.kr[p][h] < (unsigned)R;
+    }
+    sum += g.hs[p] < H;
+  }
+  // board
+  sum += clamp_to(s[DS], c.deck_bits);
+  sum += clamp_to(s[INFO], c.max_info) + clamp_to(s[LIFE], c.max_life);
+  // last action, but for the observer-relative actor and target
+  const int lmm = s[LMM], lmc = s[LMC], lmr = s[LMR];
+  const bool is_reveal = lmm == M_REVEAL_C || lmm == M_REVEAL_R;
+  const bool is_pd = lmm == M_PLAY || lmm == M_DISCARD;
+  sum += is_reveal || is_pd;
+  sum += lmm == M_REVEAL_C && (unsigned)lmc < (unsigned)C;
+  sum += lmm == M_REVEAL_R && (unsigned)lmr < (unsigned)R;
+  sum += is_reveal ? __popc((uint32_t)s[LMRB] & ((1u << H) - 1u)) : 0;
+  sum += is_pd && (unsigned)s[LMCI] < (unsigned)H;
+  sum += is_pd && (unsigned)(lmc * R + lmr) < (unsigned)L::CR;
+  sum += (lmm == M_PLAY && s[LMSC] != 0) + (lmm == M_PLAY && s[LMIT] != 0);
+  return sum;
+}
+
+// Seat a's sum, given seat_common's.
+template <int C, int R>
+__device__ __forceinline__ int seat_sum(const Cfg& c, const Game& g, int a, int common) {
+  using L = Rec<C, R>;
+  const int* s = g.s;
+  int sum = common;
+  const int rel_actor = s[LMP] == -1 ? -1 : (a - s[LMP] + P) % P;
+  sum += (unsigned)rel_actor < (unsigned)P;
+  const int rel_target = (a - s[LMT] + P) % P;
+  sum += (s[LMM] == M_REVEAL_C || s[LMM] == M_REVEAL_R) && (unsigned)rel_target < (unsigned)P;
+  // the plausible blocks: seat k's slots show bit (k - a) mod P of the mask
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    sum += h < g.hs[0] && ((g.hp[0][h] >> a) & 1u) ? L::CR : 0;
+    sum += h < g.hs[1] && ((g.hp[1][h] >> (1 - a)) & 1u) ? L::CR : 0;
+  }
+  return sum + __popc(seat_legal<C, R>(c, g, a));
+}
+
+// A fresh game for episode `idx` in the record `rec`, its two seat sums
+// added to the checksum.  deck0: the unshuffled deck in shared memory,
+// zero-padded to whole 16-byte words.
+template <int C, int R>
+__device__ void deal_rec(const Cfg& c, uint8_t* rec, uint32_t idx, const uint4* deck0v) {
+  using L = Rec<C, R>;
+  const uint4 x = reinterpret_cast<const uint4*>(rec)[W_ARNG / 4];  // words 12..15
+  static_assert(W_ARNG % 4 == 1 && W_DCNT % 4 == 3 && W_SUM + 1 == W_ARNG - 1,
+                "sum[1], arng, chk, dcnt share one 16-B word");
+  Extra e;
+  e.arng = x.y;
+  e.chk = (int)x.z;
+  e.dcnt = (int)x.w;
+  // the unshuffled deck and zeros up to the record's end
+  uint4* board = reinterpret_cast<uint4*>(rec + B_BOARD);
+#pragma unroll
+  for (int i = 0; i < (L::BYTES - B_BOARD) / 16; ++i)
+    board[i] = i < L::DECK_VECS ? deck0v[i] : make_uint4(0u, 0u, 0u, 0u);
+  // the deal's D swap draws in order on the record's deck: draw k takes the
+  // card at a position among the M - k left and moves the last one there
+  // (K3's closed form gives the same cards and deck)
+  Game g;
+  uint8_t* deck = rec + L::B_DECK;
+  uint32_t v = episode::tea_seed(idx);
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    v = episode::lcg_next(v);
+    const int loc = __float2int_rz(__fmul_rn((float)(L::M - k), episode::unif(v)));
+    g.hc[k / H][k % H] = (int8_t)deck[loc];
+    deck[loc] = deck[L::M - 1 - k];
+  }
+  fresh_scalars(c, g, v);
+  e.fd = 0;  // a fresh board
+  const int common = seat_common<C, R>(c, g, e.fd);
+#pragma unroll
+  for (int a = 0; a < P; ++a) e.sum[a] = seat_sum<C, R>(c, g, a, common);
+  e.chk += e.sum[0] + e.sum[1];
+  store_rec(rec, g, e);
+}
+
+constexpr int RESET_CAP = 2 * THREADS;  // resets listed before a block deals them
+
+// World n's record: in device memory (the L2-resident carry), or in the
+// block's shared memory when the whole resident grid holds every record
+// (ONCHIP; `first` is the block's first world).
+template <int C, int R, bool ONCHIP>
+__device__ __forceinline__ uint8_t* record(uint8_t* carry, uint4* onchip, int first, int n) {
+  if (ONCHIP) return reinterpret_cast<uint8_t*>(onchip) + (size_t)(n - first) * Rec<C, R>::STRIDE;
+  return carry + (size_t)n * Rec<C, R>::BYTES;
+}
+
+#define HK_ROLLOUT_PARAMS                                                                  \
+  const Cfg c, const int32_t* __restrict__ st_in, const int8_t* __restrict__ obs_in,         \
+      const int8_t* __restrict__ own_in, const bool* __restrict__ mask_in,                   \
+      const int32_t* __restrict__ arng_in, const int64_t* __restrict__ cnt_in,               \
+      int32_t* __restrict__ st, int32_t* __restrict__ arng, int32_t* __restrict__ dcnt,      \
+      int32_t* __restrict__ chk, int64_t* __restrict__ cnt_out, uint8_t* __restrict__ carry, \
+      int* __restrict__ totals, int N, int T, int slots
+#define HK_ROLLOUT_ARGS \
+  c, st_in, obs_in, own_in, mask_in, arng_in, cnt_in, st, arng, dcnt, chk, cnt_out, carry, totals, N, T, slots
+
+template <int C, int R, bool ONCHIP>
+__device__ __forceinline__ void rollout(HK_ROLLOUT_PARAMS) {
+  using L = Rec<C, R>;
   __shared__ int smem[episode::SCAN_SMEM_INTS];
+  __shared__ int2 resets[RESET_CAP];  // done worlds to deal: (world, episode index)
+  __shared__ uint4 deck0v[L::DECK_VECS];
+  extern __shared__ uint4 onchip[];  // the records, when ONCHIP
   cg::grid_group grid = cg::this_grid();
-  const int G = gridDim.x;
-  // the outputs are the working state; each world is only ever touched by
-  // the thread that owns it
+  const int G = gridDim.x, lane = threadIdx.x & 31, first = blockIdx.x * slots * THREADS;
+  uint8_t* deck0 = reinterpret_cast<uint8_t*>(deck0v);
+  for (int m = threadIdx.x; m < 16 * L::DECK_VECS; m += THREADS)
+    deck0[m] = m < L::M ? (uint8_t)orig_card(c, m) : 0;
+
+  // the launch-time state into the carry; each seat's sum of its launch-time
+  // obs, own and mask bytes taken by the warp together, one world at a time,
+  // so that the lanes read consecutive bytes
   for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
-    if (n < N) {
-      const Col in{const_cast<int32_t*>(st_in) + n, N}, out{st + n, N};
-      for (int r = 0; r < c.rows; ++r) out[r] = in[r];
-      arng[n] = arng_in[n];
-      dcnt[n] = 0;
-      chk[n] = 0;
+    const int n = world(slots, s), warp_first = n - lane;
+    Extra e;
+    for (int j = 0; j < 32 && warp_first + j < N; ++j) {
 #pragma unroll
       for (int a = 0; a < P; ++a) {
-        const size_t row = (size_t)n * P + a;
-        seat_sum[(size_t)a * N + n] =
-            sum_bytes(obs_in + row * c.obs, c.obs) + sum_bytes(own_in + row * c.own, c.own) +
-            sum_bytes(reinterpret_cast<const int8_t*>(mask_in) + row * c.A, c.A);
+        const size_t row = (size_t)(warp_first + j) * P + a;
+        int v = 0;
+        for (int i = lane; i < c.obs; i += 32) v += obs_in[row * c.obs + i];
+        for (int i = lane; i < c.own; i += 32) v += own_in[row * c.own + i];
+        for (int i = lane; i < c.A; i += 32) v += (int)mask_in[row * c.A + i];
+#pragma unroll
+        for (int dd = 16; dd > 0; dd >>= 1) v += __shfl_xor_sync(episode::FULL_MASK, v, dd);
+        if (lane == j) e.sum[a] = v;
       }
+    }
+    if (n < N) {
+      const Col in{const_cast<int32_t*>(st_in) + n, N, &c};
+      uint8_t* rec = record<C, R, ONCHIP>(carry, onchip, first, n);
+      Game g;
+      load_game(c, in, g);
+      for (int m = 0; m < L::M; ++m) rec[L::B_DECK + m] = (uint8_t)in.deck(m);
+      for (int k = 0; k < L::CR; ++k) rec[L::B_DISC + k] = (uint8_t)in[c.r_disc + k];
+      for (int k = 0; k < C; ++k) rec[L::B_FW + k] = (uint8_t)in.fw(k);
+      e.fd = fd_share<C, R>(rec);
+      e.arng = (uint32_t)arng_in[n];
+      e.chk = 0;
+      e.dcnt = 0;
+      store_rec(rec, g, e);
     }
   }
   uint32_t base = (uint32_t)cnt_in[0];
   for (int t = 0; t < T; ++t) {
     int* step_totals = totals + (t & 1) * G;
-    // phase A: the legal draw and the step; live worlds are final
+    // phase A: the legal draw, the step, and a live world's refreshed seat
+    // (the seat to act next); live worlds are final for this step
     uint32_t dmask = 0u;
     int count = 0;
     for (int s = 0; s < slots; ++s) {
       const int n = world(slots, s);
       bool done = false;
       if (n < N) {
-        const Col col{st + n, N};
+        uint8_t* rec = record<C, R, ONCHIP>(carry, onchip, first, n);
         Game g;
-        load_game(c, col, g);
-        const uint32_t w = episode::lcg_next((uint32_t)arng[n]);
-        arng[n] = (int32_t)w;
-        const uint32_t legal = seat_legal(c, g, g.s[CUR]);
-        const uint32_t idx = (((w >> 8) & 0x00FFFFFFu) * (uint32_t)__popc(legal)) >> 24;
-        int uid = 0;
-        uint32_t seen = 0u;
-        for (int k = 0; k < c.A; ++k) {
-          if ((legal >> k) & 1u) {
-            if (seen == idx) uid = k;
-            ++seen;
-          }
-        }
+        Extra e;
+        load_rec(rec, g, e);
+        e.arng = episode::lcg_next(e.arng);
+        const uint32_t legal = seat_legal<C, R>(c, g, g.s[CUR]);
+        const uint32_t idx = (((e.arng >> 8) & 0x00FFFFFFu) * (uint32_t)__popc(legal)) >> 24;
+        uint32_t rest = legal;  // the idx-th legal move: drop the idx lowest
+        for (uint32_t i = 0; i < idx; ++i) rest &= rest - 1u;
+        const int uid = rest ? __ffs(rest) - 1 : 0;  // no legal move: 0
         int rew;
-        done = transition(c, col, g, uid, &rew);
-        store_game(c, col, g);
-        chk[n] += rew * P + (int)done;
-        dcnt[n] += done;
+        done = transition<C, R>(c, PackedBoard<C, R>{rec, &e.fd}, g, uid, &rew);
+        e.chk += rew * P + (int)done;
+        e.dcnt += done;
+        if (done) {  // its deal reads only words 12..15 and writes the rest
+          reinterpret_cast<uint4*>(rec)[W_ARNG / 4] =
+              make_uint4((uint32_t)e.sum[1], e.arng, (uint32_t)e.chk, (uint32_t)e.dcnt);
+        } else {
+          const int a = g.s[CUR];
+          const int fresh = seat_sum<C, R>(c, g, a, seat_common<C, R>(c, g, e.fd));
+          if (a == 0) e.sum[0] = fresh; else e.sum[1] = fresh;
+          e.chk += e.sum[0] + e.sum[1];
+          store_rec(rec, g, e);
+        }
       }
       dmask |= (uint32_t)done << s;
       count += __syncthreads_count(done);
@@ -673,44 +1029,64 @@ hk_rollout_kernel(const Cfg c, const int32_t* __restrict__ st_in,
     if (threadIdx.x == 0) step_totals[blockIdx.x] = count;
     // the parity buffers let one sync a step suffice (csrc/cartpole.cu)
     grid.sync();
-    // phase B: rank this step's resets over the whole batch, deal them,
-    // and re-sum the refreshed seats
+    // phase B: rank this step's resets over the whole batch, list them in
+    // shared memory, and deal them one per thread from the block's first
+    // threads, so that only the warps holding a deal run one
     uint32_t before, all;
     episode::block_offsets(step_totals, blockIdx.x, G, smem, &before, &all);
     uint32_t next = base + before;
-    for (int s = 0; s < slots; ++s) {
-      const int n = world(slots, s);
-      const bool done = (dmask >> s) & 1u;
-      int total;
-      const int rank = episode::block_rank(done, smem, &total);
-      if (n < N) {
-        const Col col{st + n, N};
-        Game g;
-        load_game(c, col, g);
-        if (done) {
-          deal(c, col, g, next + (uint32_t)rank);
-          store_game(c, col, g);
-        }
-        int sums = 0;
-#pragma unroll
-        for (int a = 0; a < P; ++a) {
-          int32_t& ss = seat_sum[(size_t)a * N + n];
-          if (done || g.s[CUR] == a) {
-            SumSink sink;
-            encode_obs(c, col, g, a, sink);
-            encode_own(c, g, a, sink);
-            encode_mask(c, seat_legal(c, g, a), sink);
-            ss = sink.sum;
-          }
-          sums += ss;
-        }
-        chk[n] += sums;
+    int listed = 0;
+    for (int s = 0; s <= slots; ++s) {  // s == slots: deal what is listed
+      const bool done = s < slots && ((dmask >> s) & 1u);
+      int total = 0, rank = 0;
+      if (s < slots) rank = episode::block_rank(done, smem, &total);
+      if (s == slots || listed + total > RESET_CAP) {  // the same for the whole block
+        __syncthreads();
+        for (int i = threadIdx.x; i < listed; i += THREADS)
+          deal_rec<C, R>(c, record<C, R, ONCHIP>(carry, onchip, first, resets[i].x),
+                         (uint32_t)resets[i].y, deck0v);
+        __syncthreads();  // the owners read the dealt records next
+        listed = 0;
       }
+      if (done) resets[listed + rank] = make_int2(world(slots, s), (int)(next + (uint32_t)rank));
+      listed += total;
       next += (uint32_t)total;
     }
     base += all;
   }
+  // the carry back into the [rows, N] state, action words, counts, checksum
+  for (int s = 0; s < slots; ++s) {
+    const int n = world(slots, s);
+    if (n < N) {
+      const uint8_t* rec = record<C, R, ONCHIP>(carry, onchip, first, n);
+      const Col out{st + n, N, &c};
+      Game g;
+      Extra e;
+      load_rec(rec, g, e);
+      store_game(c, out, g);
+      for (int m = 0; m < L::M; ++m) out.set_deck(m, (int8_t)rec[L::B_DECK + m]);
+      for (int k = 0; k < L::CR; ++k) out[c.r_disc + k] = (int8_t)rec[L::B_DISC + k];
+      for (int k = 0; k < C; ++k) out.set_fw(k, (int8_t)rec[L::B_FW + k]);
+      arng[n] = (int32_t)e.arng;
+      chk[n] = e.chk;
+      dcnt[n] = e.dcnt;
+    }
+  }
   if (blockIdx.x == 0 && threadIdx.x == 0) cnt_out[0] = (int64_t)base;
+}
+
+// K4's two kernels.  With the records in shared memory (the resident grid
+// holds them all) two blocks an SM fit in 128 registers; with them in
+// device memory (larger batches) ptxas may take more registers than 128,
+// which keeps every instantiation free of spills at one block an SM.
+template <int C, int R>
+__global__ void __launch_bounds__(THREADS) hk_rollout_onchip_kernel(HK_ROLLOUT_PARAMS) {
+  rollout<C, R, true>(HK_ROLLOUT_ARGS);
+}
+
+template <int C, int R>
+__global__ void __launch_bounds__(THREADS, 1) hk_rollout_kernel(HK_ROLLOUT_PARAMS) {
+  rollout<C, R, false>(HK_ROLLOUT_ARGS);
 }
 
 // ---- K11 --------------------------------------------------------------------
@@ -725,9 +1101,62 @@ hk_mask_kernel(const Cfg c, const int32_t* __restrict__ cards, const int32_t* __
   int pc[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) pc[h] = partner[h];
-  const uint32_t bits = legal_bits(c, size[i], pc, info[n]);
+  const uint32_t bits = legal_bits<0, 0>(c, size[i], pc, info[n]);
   bool* o = out + (size_t)i * c.A;
   for (int k = 0; k < c.A; ++k) o[k] = (bits >> k) & 1u;
+}
+
+// K4's instantiations: the 2-player configs of envs/hanabi.py's CONFIGS.
+template <int C, int R>
+bool rollout_config(const Cfg& c) {
+  using L = Rec<C, R>;
+  return c.C == C && c.R == R && c.M == L::M && c.A == L::A && c.CR == L::CR &&
+         c.max_info + 2 * C <= 127;  // info stays an int8 (see the header)
+}
+
+template <int C, int R>
+int launch_rollout(const Cfg& c, const int32_t* st_in, const int8_t* obs_in,
+                   const int8_t* own_in, const bool* mask_in, const int32_t* arng_in,
+                   const int64_t* cnt_in, int32_t* st, int32_t* arng, int32_t* dcnt,
+                   int32_t* chk, int64_t* cnt_out, uint8_t* carry, int* scratch, int N, int T,
+                   int device, void* stream) {
+  // the records in shared memory with the fewest slots at which every block
+  // is resident at once; else in device memory
+  const void* kernel = (const void*)hk_rollout_onchip_kernel<C, R>;
+  int sms = 0, optin = 0, blocks = 0, slots = 0;
+  size_t bytes = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  for (int k = 1; k <= episode::MAX_ROLLOUT_SLOTS && !slots; ++k) {
+    const size_t need = (size_t)k * THREADS * Rec<C, R>::STRIDE;
+    if (need + 4096 > (size_t)optin) break;  // the static shared memory beside it
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, need);
+    if (err != cudaSuccess) return (int)err;
+    const int g = (N + k * THREADS - 1) / (k * THREADS);
+    if (g <= per_sm * sms) blocks = g, slots = k, bytes = need;
+  }
+  if (!slots) {
+    kernel = (const void*)hk_rollout_kernel<C, R>;
+    int max_blocks = 0;
+    err = episode::resident_blocks(kernel, device, &max_blocks);
+    if (err != cudaSuccess) return (int)err;
+    episode::split(N, max_blocks, &blocks, &slots);
+    if (slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
+  }
+  void* args[] = {(void*)&c,     (void*)&st_in,   (void*)&obs_in,   (void*)&own_in,
+                  (void*)&mask_in, (void*)&arng_in, (void*)&cnt_in, (void*)&st,
+                  (void*)&arng,  (void*)&dcnt,    (void*)&chk,      (void*)&cnt_out,
+                  (void*)&carry, (void*)&scratch, (void*)&N,        (void*)&T,
+                  (void*)&slots};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args, bytes,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -759,29 +1188,33 @@ int hk_step(const int* cfg, int cfg_ints, const int32_t* st_in, const int8_t* ob
   return (int)cudaGetLastError();
 }
 
+int hk_carry_bytes(const int* cfg, int cfg_ints) {
+  Cfg c;
+  if (!make_cfg(cfg, cfg_ints, &c)) return ERR_BAD_CONFIG;
+  if (rollout_config<5, 5>(c)) return Rec<5, 5>::BYTES;
+  if (rollout_config<2, 5>(c)) return Rec<2, 5>::BYTES;
+  if (rollout_config<1, 5>(c)) return Rec<1, 5>::BYTES;
+  return ERR_BAD_CONFIG;
+}
+
 int hk_rollout(const int* cfg, int cfg_ints, const int32_t* st_in, const int8_t* obs_in,
                const int8_t* own_in, const bool* mask_in, const int32_t* arng_in,
                const int64_t* cnt_in, int32_t* st, int32_t* arng, int32_t* dcnt,
-               int32_t* chk, int64_t* cnt_out, int32_t* seat_sum, int* scratch, int N, int T,
+               int32_t* chk, int64_t* cnt_out, uint8_t* carry, int* scratch, int N, int T,
                int device, void* stream) {
   Cfg c;
   if (!make_cfg(cfg, cfg_ints, &c)) return ERR_BAD_CONFIG;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int max_blocks = 0, blocks = 0, slots = 0;
-  err = episode::resident_blocks((const void*)hk_rollout_kernel, device, &max_blocks);
-  if (err != cudaSuccess) return (int)err;
-  episode::split(N, max_blocks, &blocks, &slots);
-  if (slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
-  void* args[] = {(void*)&c,     (void*)&st_in,   (void*)&obs_in,   (void*)&own_in,
-                  (void*)&mask_in, (void*)&arng_in, (void*)&cnt_in, (void*)&st,
-                  (void*)&arng,  (void*)&dcnt,    (void*)&chk,      (void*)&cnt_out,
-                  (void*)&seat_sum, (void*)&scratch, (void*)&N,     (void*)&T,
-                  (void*)&slots};
-  err = cudaLaunchCooperativeKernel((const void*)hk_rollout_kernel, dim3(blocks), dim3(THREADS),
-                                    args, 0, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+#define HK_ROLLOUT(C, R)                                                                   \
+  if (rollout_config<C, R>(c))                                                             \
+    return launch_rollout<C, R>(c, st_in, obs_in, own_in, mask_in, arng_in, cnt_in, st, arng, \
+                                dcnt, chk, cnt_out, carry, scratch, N, T, device, stream);
+  HK_ROLLOUT(5, 5)
+  HK_ROLLOUT(2, 5)
+  HK_ROLLOUT(1, 5)
+#undef HK_ROLLOUT
+  return ERR_BAD_CONFIG;
 }
 
 int hk_legal(const int* cfg, int cfg_ints, const int32_t* cards, const int32_t* size,

@@ -8,7 +8,9 @@ Two kernels, in ``csrc/balance.cu``:
   TEA+LCG draw), as two launches: step and count, then rank and reset;
 * **K8** ``fused_rollout``: T steps in one cooperative launch, per-(env,
   seat) LCG actions, a per-env done count and the checksum
-  ``((chk + f32(sum of the obs)) + reward) + f32(done)`` after every step.
+  ``((chk + f32(sum of the obs)) + reward) + f32(done)`` after every step;
+  from an env's third step on it carries the env's loc and obs history in
+  one packed word (``pack_positions``, ``unpack_positions``).
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it runs its plain version (``fused_step_plain``,
@@ -46,7 +48,7 @@ from ..core.batch import batched_reset, batched_step
 from ..core.rng import _MASK32, _lcg_next, _tea_seed, _to_i32
 from ..core.types import BatchState
 from ..device import DeviceLike, resolve_device
-from ..envs.balance_beam import Env, State
+from ..envs.balance_beam import BUFFER, Env, State
 from . import _build
 
 ENV = Env()
@@ -86,6 +88,32 @@ def init_packed(num_envs: int, start_episode: int = 0, device: DeviceLike = None
     ``(TState, counter)``."""
     bstate, _ = batched_reset(ENV, num_envs, start_episode, device=device)
     return pack_state(bstate.env_states), bstate.episode_counter
+
+
+# ---- K8's packed carry ------------------------------------------------------
+
+def pack_positions(ts: TState) -> torch.Tensor:
+    """K8's packed word of each world, ``[N]`` int32 (``csrc/balance.cu``):
+    l0, l1 and seat 0's obs history obs[1], obs[2], obs[4], obs[5], a nibble
+    each from bit 0 up.  Exact for every world past its first two steps,
+    whose history holds earlier positions + 2 or a fresh episode's zeros."""
+    o = ts.obs.reshape(-1, OBS).to(torch.int64)
+    vals = (ts.loc[:, 0].to(torch.int64), ts.loc[:, 1].to(torch.int64), o[:, 1], o[:, 2],
+            o[:, 4], o[:, 5])
+    word = sum((v & 0xF) << (4 * i) for i, v in enumerate(vals))
+    return _to_i32(word)
+
+
+def unpack_positions(word: torch.Tensor, time: torch.Tensor):
+    """The full-width ``(loc [N, 2], obs [N, 2, 7])`` of packed words and the
+    int32 times: seat 1's history repeats seat 0's, each seat's row ends
+    with the time."""
+    nib = [((word.to(torch.int64) >> (4 * i)) & 0xF).to(torch.int32) for i in range(6)]
+    l0, l1, o1, o2, o4, o5 = nib
+    b = BUFFER
+    obs = torch.stack([l0 + b, o1, o2, l1 + b, o4, o5, time,
+                       l1 + b, o4, o5, l0 + b, o1, o2, time], 1)
+    return torch.stack([l0, l1], 1), obs.reshape(-1, 2, OBS // 2)
 
 
 # ---- the rollout kernel's action stream -----------------------------------
@@ -213,13 +241,13 @@ def _fused_rollout_cuda(ts: TState, counter: torch.Tensor, act_rng: torch.Tensor
     dcnt = torch.empty(N, dtype=torch.int32, device=dev)
     chk = torch.empty(N, dtype=torch.float32, device=dev)
     cnt = torch.empty_like(counter)
-    rew_done = torch.empty(N, dtype=torch.float32, device=dev)
+    pos = torch.empty(N, dtype=torch.int32, device=dev)  # the packed carry (csrc/balance.cu)
     scratch = torch.empty(lib.bb_scratch_ints(N), dtype=torch.int32, device=dev)
     rc = lib.bb_rollout(
         ts.loc.data_ptr(), ts.obs.data_ptr(), ts.time.data_ptr(), ts.rng.data_ptr(),
         act_rng.data_ptr(), counter.data_ptr(), out.loc.data_ptr(), out.obs.data_ptr(),
         out.time.data_ptr(), out.rng.data_ptr(), arng.data_ptr(), dcnt.data_ptr(),
-        chk.data_ptr(), cnt.data_ptr(), rew_done.data_ptr(), scratch.data_ptr(), N,
+        chk.data_ptr(), cnt.data_ptr(), pos.data_ptr(), scratch.data_ptr(), N,
         int(num_steps), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "bb_rollout_kernel")
     LAUNCHES["fused_rollout"] += 1

@@ -14,7 +14,11 @@ plain env):
   action drawn uniformly over the active seat's legal moves from a per-env
   LCG (``action_from_mask`` replays the draw), a per-env done count and the
   checksum ``chk += P * reward + done + (sum of every seat's obs, own and
-  mask bytes)`` after every step;
+  mask bytes)`` after every step, a refreshed seat's sum in closed form
+  (``seat_sums_plain``).  Instantiated for ``ROLLOUT_CONFIGS``; it carries
+  each env in a packed record of int8 fields, so its wrapper refuses a state
+  outside ``rollout_envelope`` (which holds every state the package's
+  functions produce) before launch, and waits for the state to read it;
 * **K11** ``legal_moves``: every seat's legal-move mask from the hand cards,
   hand sizes and info tokens.
 
@@ -59,7 +63,7 @@ from ..core.batch import batched_reset, batched_step
 from ..core.rng import _MASK32, _lcg_next, _tea_seed, _to_i32
 from ..core.types import BatchState
 from ..device import DeviceLike, resolve_device
-from ..envs.hanabi import Env, State
+from ..envs.hanabi import M_DISCARD, M_PLAY, M_REVEAL_C, M_REVEAL_R, Env, State
 from . import _build
 
 # launches of each kernel since the last reset_launches()
@@ -70,6 +74,9 @@ SCAL_FIELDS = ("deck_size", "info_tokens", "life_tokens", "cur_player", "turns_t
                "score", "lm_move", "lm_player", "lm_target", "lm_card_index", "lm_scored",
                "lm_info_token", "lm_color", "lm_rank", "lm_reveal_bits", "rng_v")
 CUR = SCAL_FIELDS.index("cur_player")
+# the configs K4 is instantiated for (csrc/hanabi.cu's HK_ROLLOUT): full,
+# small and very_small
+ROLLOUT_CONFIGS = ("full", "small", "very_small")
 INFO = SCAL_FIELDS.index("info_tokens")
 
 
@@ -222,6 +229,117 @@ def fused_rollout_plain(env: Env, ts: TState, counter: torch.Tensor, act_rng: to
     return out, w[None, :], counter, dcnt, chk
 
 
+def seat_sums_plain(env: Env, ts: TState) -> torch.Tensor:
+    """Each seat's sum of the obs, own-hand and mask bytes that a fresh encode
+    of the state ``ts.st`` would write, ``[N, P]`` int32, in closed form
+    section by section (the formula K4 computes for a refreshed seat, after
+    ``envs/hanabi.py::_encode_seat`` and ``legal_mask``): a one-hot block adds
+    1 where its value lies in range, a thermometer the clamped count.  The
+    reference's quirks stay: the knowledge section's plausible bit is bit
+    ``offset`` of the mask broadcast over the slot's C*R bits, rel_target is
+    taken even for lm_target -1 (the reveal flag gates it), and the reveal
+    legality reads dead slots.  Two players."""
+    C, R, P, H = env.colors, env.ranks, env.players, env.hand
+    CR, N = C * R, ts.num_envs
+    off = row_offsets(env)
+    st = ts.st.to(torch.int64)
+    rows = lambda name, n: st[off[name]:off[name] + n]
+    sc = {f: st[off["scal"] + i] for i, f in enumerate(SCAL_FIELDS)}
+    hc = rows("hc", P * H).reshape(P, H, N)
+    hp = rows("hp", P * H).reshape(P, H, N) & 0xFFFFFFFF
+    kc = rows("kc", P * H).reshape(P, H, N)
+    kr = rows("kr", P * H).reshape(P, H, N)
+    hs = rows("hs", P)
+    slot = torch.arange(H, device=st.device)[:, None]
+    live = slot[None] < hs[:, None]                                        # [P, H, N]
+    in_range = lambda x, n: (x >= 0) & (x < n)
+    cards = (live & in_range(hc, CR)).sum(1)                               # [P, N]
+    copies = torch.tensor([3 if r == 0 else 1 if r == R - 1 else 2 for r in range(R)] * C,
+                          device=st.device)[:, None]
+    fw = rows("fw", C)
+    lmm, lmc, lmr = sc["lm_move"], sc["lm_color"], sc["lm_rank"]
+    is_reveal = (lmm == M_REVEAL_C) | (lmm == M_REVEAL_R)
+    is_pd = (lmm == M_PLAY) | (lmm == M_DISCARD)
+    is_play = lmm == M_PLAY
+    shared = ((hs < H).sum(0) + sc["deck_size"].clamp(0, env.max_deck_bits)
+              + ((fw >= 1) & (fw <= R)).sum(0)
+              + sc["info_tokens"].clamp(0, env.max_info) + sc["life_tokens"].clamp(0, env.max_life)
+              + torch.minimum(rows("disc", CR).clamp(min=0), copies).sum(0)
+              + ((lmm >= M_DISCARD) & (lmm <= M_REVEAL_R)).long()
+              + (is_reveal & in_range(lmc, C) & (lmm == M_REVEAL_C)).long()
+              + (is_reveal & in_range(lmr, R) & (lmm == M_REVEAL_R)).long()
+              + is_reveal * ((sc["lm_reveal_bits"] & ((1 << H) - 1))[None] >> slot & 1).sum(0)
+              + (is_pd & in_range(sc["lm_card_index"], H)).long()
+              + (is_pd & in_range(lmc * R + lmr, CR)).long()
+              + (is_play & (sc["lm_scored"] != 0)).long()
+              + (is_play & (sc["lm_info_token"] != 0)).long())
+    hands = hc.permute(2, 0, 1).to(torch.int32).contiguous()
+    legal = legal_moves_plain(env, hands, hs.t().to(torch.int32).contiguous(),
+                              sc["info_tokens"].to(torch.int32))
+    out = []
+    for a in range(P):
+        lmp = sc["lm_player"]
+        # C's remainder (truncating), as the kernels compute it
+        rel_actor = torch.where(lmp == -1, -1, torch.fmod(a - lmp + P, P))
+        rel_target = torch.fmod(a - sc["lm_target"] + P, P)
+        know = 0
+        for o in range(P):
+            k = (a + o) % P
+            pb = live[k] & ((hp[k] >> o) & 1).bool()
+            know = know + (CR * pb + (live[k] & in_range(kc[k], C))
+                           + (live[k] & in_range(kr[k], R))).sum(0)
+        out.append(shared + cards[1 - a] + cards[a] + know + in_range(rel_actor, P)
+                   + (is_reveal & in_range(rel_target, P)) + legal[:, a].sum(1))
+    return torch.stack(out, 1).to(torch.int32)
+
+
+def rollout_envelope(env: Env):
+    """The values K4's carry holds exactly, per row of ``st``: ``(lo, hi)``
+    int64 ``[ROWS]``, None where any int32 is held or the row is rewritten by
+    every step before it is read (the last-move rows).  Every state that
+    ``init_packed``, ``fused_step`` and ``fused_rollout`` produce lies inside,
+    and a game started inside stays inside (``csrc/hanabi.cu``'s header)."""
+    C, R, P, H = env.colors, env.ranks, env.players, env.hand
+    off, big = row_offsets(env), 2**31
+    lo = torch.full((off["rows"],), -big, dtype=torch.int64)
+    hi = torch.full((off["rows"],), big - 1, dtype=torch.int64)
+
+    def put(name, n, low, high):
+        lo[off[name]:off[name] + n], hi[off[name]:off[name] + n] = low, high
+
+    put("deck", env.max_cards, 0, C * R - 1)
+    put("disc", C * R, 0, torch.tensor([3 if r == 0 else 1 if r == R - 1 else 2
+                                        for r in range(R)] * C))
+    put("fw", C, 0, R)
+    for f, low, high in (("deck_size", 0, env.max_deck_bits), ("info_tokens", 0, env.max_info + C),
+                         ("life_tokens", 0, env.max_life), ("cur_player", 0, P - 1),
+                         ("turns_to_play", 0, P), ("score", 0, C * R)):
+        lo[off["scal"] + SCAL_FIELDS.index(f)] = low
+        hi[off["scal"] + SCAL_FIELDS.index(f)] = high
+    put("hc", P * H, 0, C * R - 1)
+    put("hs", P, 0, H)
+    put("kc", P * H, -1, C - 1)
+    put("kr", P * H, -1, R - 1)
+    return lo, hi
+
+
+def envelope_violations(env: Env, st: torch.Tensor):
+    """Rows of ``st`` ([ROWS, N] int32) with a value outside
+    ``rollout_envelope``: a list of ``"field[i]: min..max"`` strings."""
+    lo, hi = (x.to(st.device) for x in rollout_envelope(env))
+    mn, mx = torch.aminmax(st, dim=1)
+    bad = torch.nonzero((mn.to(torch.int64) < lo) | (mx.to(torch.int64) > hi)).flatten().tolist()
+    if not bad:
+        return []
+    names = [(name, r) for name, r in row_offsets(env).items() if name != "rows"]
+    out = []
+    for row in bad:
+        name, first = max((r, name) for name, r in names if r <= row)[::-1]
+        field = SCAL_FIELDS[row - first] if name == "scal" else f"{name}[{row - first}]"
+        out.append(f"{field}: {int(mn[row])}..{int(mx[row])}")
+    return out
+
+
 def legal_moves_plain(env: Env, hand_cards: torch.Tensor, hand_size: torch.Tensor,
                       info_tokens: torch.Tensor) -> torch.Tensor:
     """K11's plain version: the plain env's mask for every seat, ``[N, P,
@@ -242,6 +360,8 @@ def _lib() -> ctypes.CDLL:
         lib.hk_step.restype = i
         lib.hk_rollout.argtypes = [p, i] + [p] * 13 + [i, i, i, p]
         lib.hk_rollout.restype = i
+        lib.hk_carry_bytes.argtypes = [p, i]
+        lib.hk_carry_bytes.restype = i
         lib.hk_legal.argtypes = [p, i] + [p] * 4 + [i, i, p]
         lib.hk_legal.restype = i
         lib.hk_error_string.argtypes = [i]
@@ -316,16 +436,24 @@ def _fused_rollout_cuda(env: Env, ts: TState, counter: torch.Tensor, act_rng: to
     dev = ts.st.device
     _build.check_tensor(act_rng, "act_rng", torch.int32, (1, N), dev, align=4)
     cfg, lib = _cfg(env), _lib()
+    record = lib.hk_carry_bytes(*cfg)
+    if record < 0:
+        raise ValueError(f"hk_rollout_kernel has no instantiation for this config "
+                         f"({env.colors} colors, {env.ranks} ranks): it runs {ROLLOUT_CONFIGS}")
+    bad = envelope_violations(env, ts.st)
+    if bad:
+        raise ValueError("state outside hk_rollout_kernel's envelope (rollout_envelope): "
+                         + "; ".join(bad))
     st, arng = torch.empty_like(ts.st), torch.empty_like(act_rng)
     dcnt = torch.empty(N, dtype=torch.int32, device=dev)
     chk = torch.empty(N, dtype=torch.int32, device=dev)
     cnt = torch.empty_like(counter)
-    seat_sums = torch.empty((env.players, N), dtype=torch.int32, device=dev)
+    carry = torch.empty(N * record, dtype=torch.uint8, device=dev)
     scratch = torch.empty(lib.hk_scratch_ints(N), dtype=torch.int32, device=dev)
     rc = lib.hk_rollout(
         *cfg, ts.st.data_ptr(), ts.obs.data_ptr(), ts.own.data_ptr(), ts.mask.data_ptr(),
         act_rng.data_ptr(), counter.data_ptr(), st.data_ptr(), arng.data_ptr(),
-        dcnt.data_ptr(), chk.data_ptr(), cnt.data_ptr(), seat_sums.data_ptr(),
+        dcnt.data_ptr(), chk.data_ptr(), cnt.data_ptr(), carry.data_ptr(),
         scratch.data_ptr(), N, int(num_steps), dev.index or 0, _stream(dev))
     _raise_on(rc, "hk_rollout_kernel")
     LAUNCHES["fused_rollout"] += 1

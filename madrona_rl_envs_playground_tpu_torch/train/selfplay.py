@@ -9,7 +9,8 @@ update has three phases, kept separable as in JAX:
    step (through the collector's kernel where the env has one);
 2. ``_advantage``: credit routing, bootstrap value, GAE, advantage
    normalisation and the minibatch chunks (bands of the T axis, in order,
-   no shuffle);
+   no shuffle; where ``num_minibatches`` does not divide ``num_steps``, JAX's
+   fallback: T-major flat chunks, the remainder rows dropped);
 3. ``_update``: ``update_epochs`` passes over the chunks with the PPO loss,
    a global-norm gradient clip (``train/optim.py``) and Adam.
 
@@ -109,9 +110,6 @@ class SelfPlayPPO:
         self.device = resolve_device(device)
         if cfg.value_loss not in ("clipped_mse", "smooth_l1"):
             raise ValueError(f"unknown value_loss {cfg.value_loss!r}")
-        if cfg.num_steps % cfg.num_minibatches:
-            raise ValueError("num_minibatches must divide num_steps (chunks are "
-                             "bands of the T axis)")
         self.env = env
         self.num_envs = num_envs
         self.cfg = cfg
@@ -187,7 +185,10 @@ class SelfPlayPPO:
 
     def _advantage(self, tr: Dict[str, torch.Tensor], out):
         """Phase 2.  Returns (chunks, stats): chunks maps each buffer to
-        ``[num_minibatches, T / num_minibatches, M, ...]``."""
+        ``[num_minibatches, T / num_minibatches, M, ...]`` where
+        ``num_minibatches`` divides T, else (JAX's fallback) to
+        ``[num_minibatches, T * M // num_minibatches, ...]``: the buffer
+        flattened T-major, the last ``T * M % num_minibatches`` rows dropped."""
         cfg = self.cfg
         T, N, P = cfg.num_steps, self.num_envs, self.env.num_agents
         M = N * P
@@ -230,8 +231,13 @@ class SelfPlayPPO:
         if self._masked:
             batch["masks"] = tr["mask"]
             batch["active"] = b_active
-        chunks = {k: v.reshape((nmb, T // nmb) + tuple(v.shape[1:]))
-                  for k, v in batch.items()}
+        if T % nmb == 0:
+            chunks = {k: v.reshape((nmb, T // nmb) + tuple(v.shape[1:]))
+                      for k, v in batch.items()}
+        else:
+            mb = T * M // nmb
+            chunks = {k: v.reshape((T * M,) + tuple(v.shape[2:]))[:nmb * mb]
+                      .reshape((nmb, mb) + tuple(v.shape[2:])) for k, v in batch.items()}
         stats = {"mean_step_reward": mean(rewards), "mean_value": mean(tr["value"])}
         return chunks, stats
 

@@ -161,6 +161,36 @@ def test_pack_unpack_and_action_stream_match_jax():
         np.testing.assert_array_equal(t_a.numpy(), np.asarray(j_a))
 
 
+@pytest.mark.parametrize("wild", [False, True])
+def test_packed_carry_round_trips_after_two_steps(wild):
+    """K8's packed word (``pack_positions``) holds every world exactly from
+    its third step on, and after two steps all but the t-2 history slots,
+    which the third step drops (the kernel runs the first two steps at full
+    width and packs before the third): over 300 plain random-action steps,
+    from fresh episodes or from random int32 obs history, times and
+    positions, unpacking the word and the time gives back the state's loc
+    and obs."""
+    n = 300
+    ts, cnt = tbp.init_packed(n, device=CPU)
+    rs = np.random.RandomState(5)
+    if wild:
+        rand = lambda *shape: torch.from_numpy(rs.randint(-2**31, 2**31 - 1, size=shape,
+                                                          dtype=np.int64).astype(np.int32))
+        loc = torch.where(torch.from_numpy(rs.rand(n, 2) < 0.7),
+                          torch.from_numpy(rs.randint(0, 5, (n, 2)).astype(np.int32)), rand(n, 2))
+        ts = tbp.TState(loc=loc, obs=rand(n, 2, 7), time=rand(n).abs(), rng=ts.rng)
+    resets = 0
+    for t in range(300):
+        a = torch.from_numpy(rs.randint(0, 4, (n, 2)).astype(np.int32))
+        ts, _, done, cnt = tbp.fused_step_plain(ts, cnt, a)
+        resets += int(done.sum())
+        loc, obs = tbp.unpack_positions(tbp.pack_positions(ts), ts.time)
+        keep = [0, 1, 3, 4, 6] if t == 1 else list(range(7))  # t-2 slots: 2 and 5
+        if t >= 1:
+            assert torch.equal(loc, ts.loc) and torch.equal(obs[..., keep], ts.obs[..., keep]), t
+    assert resets > n
+
+
 def test_wrappers_check_their_inputs():
     n = 4
     ts, cnt = tbp.init_packed(n, device=CPU)

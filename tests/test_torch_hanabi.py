@@ -261,6 +261,75 @@ def test_wrappers_check_their_inputs():
     assert tk.fused_supported(env) and not tk.fused_supported(th.Env(**THREE_PLAYERS))
 
 
+@pytest.mark.parametrize("config", ["full", "small", "very_small"])
+def test_seat_sums_plain_equal_the_encodes_byte_sums(config):
+    """K4's closed-form seat sums (``seat_sums_plain``, which the kernel
+    mirrors) equal the byte sums of a fresh obs, own-hand and mask encode of
+    each seat, exactly, on the states of 300 plain legal-move steps: the
+    refreshed seats' buffers hold those encodes, and the run passes through
+    empty-deck shifts, reveals and fresh deals (half the envs never play
+    while another move is legal, so that their games last until the deck
+    runs out).  Every state lies inside K4's envelope."""
+    env = th.Env(**th.CONFIGS[config])
+    n = 160
+    ts, cnt = tk.init_packed(env, n, device=CPU)
+    w = tk.init_action_rng(n, seed=1, device=CPU)[0]
+    scal = tk.row_offsets(env)["scal"]
+    ds, lmm = scal + tk.SCAL_FIELDS.index("deck_size"), scal + tk.SCAL_FIELDS.index("lm_move")
+    seen = dict(shifts=0, reveals=0, deals=0)
+    plays = torch.zeros(env.num_actions, dtype=torch.bool)
+    plays[env.hand:2 * env.hand] = True
+    careful = torch.arange(n)[:, None] >= n // 2
+    for t in range(300):
+        mask = tk.active_mask(env, ts)
+        no_play = mask & ~plays
+        mask = torch.where(careful & no_play.any(1, keepdim=True), no_play, mask)
+        w, uid = tk.action_from_mask(w, mask)
+        empty = ts.st[ds] == 0
+        ts, _, done, cnt = tk.fused_step_plain(env, ts, cnt, uid[:, None].expand(n, 2).contiguous())
+        s = tk.unpack_state(env, ts)
+        fresh = []
+        for a in range(env.players):
+            obs, own = env._encode_seat(s, a)
+            mask = env.legal_mask(s.hand_cards, s.hand_size, s.info_tokens, a)
+            fresh.append(obs.sum(1, dtype=torch.int32) + own.sum(1, dtype=torch.int32)
+                         + mask.sum(1, dtype=torch.int32))
+        fresh = torch.stack(fresh, 1)
+        sums = tk.seat_sums_plain(env, ts)
+        assert torch.equal(sums, fresh), t
+        bufs = (ts.obs.sum(2, dtype=torch.int32) + ts.own.sum(2, dtype=torch.int32)
+                + ts.mask.sum(2, dtype=torch.int32))
+        refreshed = done[:, None] | (torch.arange(2)[None, :] == ts.st[scal + tk.CUR][:, None])
+        assert torch.equal(bufs[refreshed], sums[refreshed]), t
+        assert not tk.envelope_violations(env, ts.st), t
+        seen["shifts"] += int((empty & (uid < 2 * env.hand) & ~done).sum())
+        seen["reveals"] += int(((ts.st[lmm] >= th.M_REVEAL_C) & ~done).sum())
+        seen["deals"] += int(done.sum())
+    assert min(seen.values()) > 0, seen
+
+
+def test_rollout_envelope_names_the_rows_outside_it():
+    """The rows K4's carry holds in bytes are checked against their ranges;
+    a state outside is named row by row (the CUDA wrapper refuses it), and
+    the last-move rows, rewritten by every step before K4 reads them, and
+    the 32-bit rows take any int32."""
+    env = th.Env(**th.CONFIGS["full"])
+    ts, _ = tk.init_packed(env, 5, device=CPU)
+    off = tk.row_offsets(env)
+    assert tk.envelope_violations(env, ts.st) == []
+    st = ts.st.clone()
+    st[off["scal"] + tk.SCAL_FIELDS.index("lm_color"), 1] = 1000
+    st[off["hp"] + 3, 2] = -7
+    st[off["scal"] + tk.SCAL_FIELDS.index("rng_v"), 0] = -2**31
+    assert tk.envelope_violations(env, st) == []
+    st[off["deck"] + 4, 3] = 25
+    st[off["scal"] + tk.SCAL_FIELDS.index("turns_to_play"), 0] = 3
+    st[off["kr"] + 9, 4] = -2
+    bad = tk.envelope_violations(env, st)
+    assert [b.split(":")[0] for b in bad] == ["deck[4]", "turns_to_play", "kr[9]"]
+    assert bad[0].endswith("..25") and bad[1:] == ["turns_to_play: 2..3", "kr[9]: -2..-1"]
+
+
 def test_collector_matches_batched_step():
     """The collector's StepOutput (state_obs = obs ++ own, the int32 reward
     delta broadcast to both seats as float32, active = the seat to act)

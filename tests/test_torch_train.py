@@ -179,6 +179,24 @@ def test_one_update_matches_jax(value_loss, jax_rollout):
     assert_update_matches_jax(jt, tt, j_tr, j_out)
 
 
+def test_one_update_matches_jax_when_minibatches_do_not_divide_steps():
+    """num_minibatches = 4 does not divide num_steps = 6: both packages fall
+    back to T-major flat chunks of T * M // 4 rows, the remainder dropped.
+    8 envs give minibatches of 24 rows, near the other update tests' 32: at
+    12 rows a few first-layer gradient elements come out near Adam's eps,
+    where a float32 rounding difference moves the step by ~1e-3 of itself."""
+    T, N, P = 6, 8, 2
+    jt, tt = _trainers(T=T, nmb=4, num_envs=N)
+    rs = np.random.RandomState(6)
+    acts = rs.choice(6, size=(T, N, P), p=[.15, .15, .15, .15, .05, .35]).astype(np.int32)
+    _, j_out, j_tr = jax_rollout_injected(jt, acts)
+    _, t_out, t_tr = tt._rollout(torch.from_numpy(acts))
+    np.testing.assert_array_equal(t_tr["obs"].numpy(), np.asarray(j_tr["obs"]))
+    chunks, _ = tt._advantage(t_tr, t_out)
+    assert chunks["obs"].shape[:2] == (4, T * N * P // 4)
+    assert_update_matches_jax(jt, tt, j_tr, j_out)
+
+
 def assert_update_matches_jax(jt, tt, j_tr, j_out, loss_atol=1e-7, loss_abs=None):
     """One PPO update of the port's ``tt`` on the JAX trajectory ``j_tr``
     against the JAX trainer ``jt``'s: advantages, returns, stats, the last
