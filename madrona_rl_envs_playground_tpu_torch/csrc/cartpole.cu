@@ -10,14 +10,18 @@
 //   worlds; the second ranks the done worlds (csrc/episode_scan.cuh) and
 //   draws their fresh episodes.  The launch boundary is the barrier between
 //   the two halves of the scan, so no block waits on another.
-// K6 `cp_rollout_kernel` replaces the persistent rollout Pallas kernels
-//   ops/cartpole_pallas.py::_build_rollout_kernel and
-//   _build_rollout_kernel_packed (fused_rollout): T steps in one cooperative
-//   launch, actions from a per-env LCG (action = bit 23 of the advanced
-//   word), a per-env done count and checksum (sum of x after every step).
-//   Every step ranks its resets over the whole batch: each block writes its
-//   count to a buffer of the step's parity, one grid-wide sync, then every
-//   block sums the counts before it.  So episodes are allocated per step in
+// K6 `cp_rollout_onchip_kernel` / `cp_rollout_kernel` replace the
+//   persistent rollout Pallas kernels ops/cartpole_pallas.py::
+//   _build_rollout_kernel and _build_rollout_kernel_packed (fused_rollout):
+//   T steps in one cooperative launch, actions from a per-env LCG (action =
+//   bit 23 of the advanced word), a per-env done count and checksum (sum of
+//   x after every step).  The launcher picks the kernel by N: where every
+//   block of the resident grid holds its worlds' carry in shared memory (up
+//   to 8,192 worlds an SM, 28 B each), the on-chip kernel; else the carry
+//   lies in the output arrays in device memory.  Every step ranks its
+//   resets over the whole batch: each block writes its count to a buffer of
+//   the step's parity, one grid-wide sync, then every block sums the counts
+//   before it.  So episodes are allocated per step in
 //   whole-batch world order, as T applications of K5 do (and as JAX's
 //   fused_rollout with one block, block == N, does; with more blocks JAX
 //   runs each block's T steps before the next block's, an order a
@@ -27,9 +31,9 @@
 // Layout.  The state is env-major [N, 4] f32 (x, x_dot, theta, theta_dot):
 // one 16-byte load and store per world, and the same memory is the [N, 1, 4]
 // obs the policy reads.  The episode LCG words are int32 [N].  Block b owns
-// a contiguous run of slots * THREADS worlds (episode_scan.cuh's `world`), so
-// the loads of a slot are coalesced and (block, slot, thread) order is world
-// order.
+// a contiguous run of slots * (its threads) worlds (episode_scan.cuh's
+// `world` for K5), so the loads of a slot are coalesced and (block, slot,
+// thread) order is world order.
 //
 // Exactness.  The physics is written with __fadd_rn/__fsub_rn/__fmul_rn/
 // __fdiv_rn, one IEEE rounding per operation in the JAX operation order:
@@ -41,12 +45,15 @@
 //
 // What bounds them on an H100.  K5 moves 45 B per world-step (state 16 B,
 // LCG word 4 B and action 4 B read; state, word and done written) and does
-// about 40 operations, so device-memory bytes bound it.  K6 reads and writes
-// each world once per launch but does its operations T times; its state does
-// not fit in registers at 1M worlds (32 B of carry per world against the
-// register file's 33.8 MB over 132 SMs), so each step loads and stores the
-// carry, which stays in the 50 MB L2 for cartpole.  The grid-wide sync per
-// step is the other cost.
+// about 100 instructions, so device-memory bytes bound it.  K6 reads and
+// writes each world once per launch but does its ~98 instructions a step T
+// times, so operations bound it.  Its per-step carry (state, action word,
+// checksum, done count: 28 B) stays in shared memory for all T steps where
+// the resident grid holds it (8,192 worlds x 28 B = 224 KB a block at 1M
+// worlds), so a step touches device memory only to store a reset's episode
+// word; past that it makes a round trip through L2 every step.  The
+// grid-wide sync and the scan are a fixed cost a step; the ranking takes
+// one barrier and one warp scan a step, whatever the slots.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -171,84 +178,279 @@ cp_reset_kernel(const bool* __restrict__ done_in, const int32_t* __restrict__ rn
 
 // ---- K6 ---------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-cp_rollout_kernel(const float4* __restrict__ st_in, const int32_t* __restrict__ rng_in,
-                  const int32_t* __restrict__ arng_in, const int64_t* __restrict__ cnt_in,
-                  float4* __restrict__ st, int32_t* __restrict__ rng,
-                  int32_t* __restrict__ arng, int32_t* __restrict__ dcnt,
-                  float* __restrict__ chk, int64_t* __restrict__ cnt_out,
-                  int* __restrict__ totals, int N, int T, int slots) {
-  __shared__ int smem[episode::SCAN_SMEM_INTS];
+// K6's two kernels run one body (rollout<ONCHIP>): with each world's carry
+// in the block's shared memory (ONCHIP, cp_rollout_onchip_kernel, blocks of
+// up to K6_THREADS sized to spread the worlds over every SM), or in the
+// output arrays in device memory (cp_rollout_kernel, blocks of THREADS).
+// Both rank a step's resets in one pass (a ballot per (slot, warp), the
+// counts in shared memory in world order, one scan by the first warp) and
+// draw them compacted: each warp hands its done worlds to its lanes in
+// order, so a warp draws about one fresh episode a lane a step, not one per
+// slot that holds a reset.
+constexpr int K6_THREADS = 1024;
+constexpr int K6_MAX_SLOTS = 8;              // 8,192 worlds a block: 224 KB of carry
+constexpr int CARRY_BYTES = 16 + 4 + 4 + 4;  // state, action word, checksum, done count
+constexpr int RANK_COUNTS = 256;             // (slot, warp) counts a step, at most
+// the shared memory of the body beside the carry
+constexpr int K6_STATIC_SMEM = sizeof(int) * (2 * RANK_COUNTS + episode::SCAN_SMEM_INTS);
+static_assert(K6_MAX_SLOTS * (K6_THREADS / 32) <= RANK_COUNTS &&
+                  episode::MAX_ROLLOUT_SLOTS * (THREADS / 32) <= RANK_COUNTS,
+              "a step's (slot, warp) counts fit the scan");
+
+// K6's phase stamps, compiled in only with -DCP_PHASE_STAMPS (a build
+// apart, by chip_smoke.py --phases): every warp sums the SM clocks
+// (clock64) it spends in each phase of its steps, and block 0 notes the
+// global timer and its SM clock at the first and the last step, which
+// gives the SM clock under load.  Phases: A (action, physics, done and the
+// ballots), the block barrier after A, the counts' scan (the first warp),
+// the grid-wide sync, the block's offset over the grid, and the draws.
+#ifdef CP_PHASE_STAMPS
+enum { PH_A, PH_BARRIER, PH_SCAN, PH_GRID, PH_OFFSETS, PH_DRAWS, PH_PHASES };
+// the phases' clocks summed over the warps, then the number of warps
+__device__ unsigned long long cp_phase_clocks[PH_PHASES + 1];
+// block 0's first thread: global timer (ns) and clock64 before the first
+// step and after the last
+__device__ long long cp_phase_span[4];
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PHASE_STAMP(k)               \
+  do {                               \
+    const long long now = clock64(); \
+    ph_clocks[k] += now - ph_last;   \
+    ph_last = now;                   \
+  } while (0)
+#else
+#define PHASE_STAMP(k) \
+  do {                 \
+  } while (0)
+#endif
+
+#define CP_ROLLOUT_PARAMS                                                                  \
+  const float4 *__restrict__ st_in, const int32_t *__restrict__ rng_in,                    \
+      const int32_t *__restrict__ arng_in, const int64_t *__restrict__ cnt_in,            \
+      float4 *__restrict__ st, int32_t *__restrict__ rng, int32_t *__restrict__ arng,      \
+      int32_t *__restrict__ dcnt, float *__restrict__ chk, int64_t *__restrict__ cnt_out, \
+      int *__restrict__ totals, int N, int T, int slots
+#define CP_ROLLOUT_ARGS \
+  st_in, rng_in, arng_in, cnt_in, st, rng, arng, dcnt, chk, cnt_out, totals, N, T, slots
+
+template <bool ONCHIP>
+__device__ __forceinline__ void rollout(CP_ROLLOUT_PARAMS) {
+  __shared__ int counts[2][RANK_COUNTS];  // by the step's parity
+  __shared__ int scan_smem[episode::SCAN_SMEM_INTS];
+  extern __shared__ __align__(16) unsigned char carry_smem[];
   cg::grid_group grid = cg::this_grid();
-  const int G = gridDim.x;
-  // the outputs are the working state: each world is only ever touched by
-  // the thread that owns it
+  const int G = gridDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int block = blockDim.x, warps = block >> 5;
+  const int cap = slots * block, first = blockIdx.x * cap;  // world first + i is slot i / block
+  // the carry of world first + i at index i: in shared memory, or the
+  // outputs themselves (each world is only ever touched by its thread, or
+  // at a reset by a lane of its warp)
+  float4* pole = ONCHIP ? reinterpret_cast<float4*>(carry_smem) : st + first;
+  uint32_t* aw = ONCHIP ? reinterpret_cast<uint32_t*>(pole + cap)
+                        : reinterpret_cast<uint32_t*>(arng) + first;
+  float* ck = ONCHIP ? reinterpret_cast<float*>(aw + cap) : chk + first;
+  int* dc = ONCHIP ? reinterpret_cast<int*>(ck + cap) : dcnt + first;
   for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
+    const int i = s * block + tid, n = first + i;
     if (n < N) {
-      st[n] = st_in[n];
+      pole[i] = st_in[n];
+      aw[i] = (uint32_t)arng_in[n];
+      ck[i] = 0.0f;
+      dc[i] = 0;
       rng[n] = rng_in[n];
-      arng[n] = arng_in[n];
-      dcnt[n] = 0;
-      chk[n] = 0.0f;
     }
   }
   uint32_t base = (uint32_t)cnt_in[0];
+#ifdef CP_PHASE_STAMPS
+  long long ph_clocks[PH_PHASES] = {}, ph_last = clock64();
+  if (blockIdx.x == 0 && tid == 0) {
+    cp_phase_span[0] = global_ns();
+    cp_phase_span[1] = ph_last;
+  }
+#endif
   for (int t = 0; t < T; ++t) {
+    int* cnt = counts[t & 1];
     int* step_totals = totals + (t & 1) * G;
     // phase A: action, physics, done; live worlds are final for this step
     uint32_t dmask = 0u;
-    int count = 0;
     for (int s = 0; s < slots; ++s) {
-      const int n = world(slots, s);
+      const int i = s * block + tid;
       bool done = false;
-      if (n < N) {
-        const uint32_t w = episode::lcg_next((uint32_t)arng[n]);
-        arng[n] = (int32_t)w;
-        Pole p = load(st, n);
+      if (first + i < N) {
+        const uint32_t w = episode::lcg_next(aw[i]);
+        aw[i] = w;
+        Pole p = load(pole, i);
         done = transition(p, (int)((w >> 23) & 1u));
         if (!done) {
-          store(st, n, p);
-          chk[n] = __fadd_rn(chk[n], p.x);
+          store(pole, i, p);
+          ck[i] = __fadd_rn(ck[i], p.x);
         }
-        dcnt[n] += done;
+        dc[i] += done;
       }
+      const unsigned b = __ballot_sync(episode::FULL_MASK, done);
+      if (lane == 0) cnt[s * warps + warp] = __popc(b);
       dmask |= (uint32_t)done << s;
-      count += __syncthreads_count(done);
     }
-    if (threadIdx.x == 0) step_totals[blockIdx.x] = count;
+    PHASE_STAMP(PH_A);
+    __syncthreads();
+    PHASE_STAMP(PH_BARRIER);
+    if (warp == 0) {
+      // the counts' exclusive scan in world order ((slot, warp) order),
+      // RANK_COUNTS / 32 consecutive counts a lane, and the block's total
+      constexpr int PER = RANK_COUNTS / 32;
+      const int n_counts = slots * warps;
+      int v[PER], sum = 0;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int j = lane * PER + k;
+        v[k] = j < n_counts ? cnt[j] : 0;
+        sum += v[k];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(episode::FULL_MASK, incl, d);
+        if (lane >= d) incl += u;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int j = lane * PER + k;
+        if (j < n_counts) cnt[j] = run;
+        run += v[k];
+      }
+      if (lane == 31) step_totals[blockIdx.x] = incl;
+    }
+    PHASE_STAMP(PH_SCAN);
     // the parity buffers let one sync a step suffice: a block writes the
     // next step's counts only after every block has passed this sync, hence
     // finished reading the counts of two steps back
     grid.sync();
-    // phase B: rank this step's resets over the whole batch and draw them
+    PHASE_STAMP(PH_GRID);
+    // phase B: rank this step's resets over the whole batch and draw them,
+    // the warp's done worlds one a lane in (slot, lane) order
     uint32_t before, all;
-    episode::block_offsets(step_totals, blockIdx.x, G, smem, &before, &all);
-    uint32_t next = base + before;
-    for (int s = 0; s < slots; ++s) {
-      const int n = world(slots, s);
-      const bool done = (dmask >> s) & 1u;
-      int total;
-      const int rank = episode::block_rank(done, smem, &total);
-      if (done) {
-        uint32_t w;
-        const Pole p = fresh(next + (uint32_t)rank, &w);
-        store(st, n, p);
-        rng[n] = (int32_t)w;
-        chk[n] = __fadd_rn(chk[n], p.x);
+    episode::block_offsets(step_totals, blockIdx.x, G, scan_smem, &before, &all);
+    const uint32_t next = base + before;
+    PHASE_STAMP(PH_OFFSETS);
+    int resets = 0;
+    for (int s = 0; s < slots; ++s)
+      resets += __popc(__ballot_sync(episode::FULL_MASK, (dmask >> s) & 1u));
+    for (int j0 = 0; j0 < resets; j0 += 32) {
+      const int j = j0 + lane;  // the warp's j-th done world
+      int i = -1, seen = 0;
+      uint32_t rank = 0u;
+      for (int s = 0; s < slots; ++s) {
+        const unsigned b = __ballot_sync(episode::FULL_MASK, (dmask >> s) & 1u);
+        const int c = __popc(b);
+        if (j >= seen && j < seen + c) {
+          unsigned rest = b;  // drop the j - seen lowest
+          for (int k = 0; k < j - seen; ++k) rest &= rest - 1u;
+          i = s * block + warp * 32 + __ffs(rest) - 1;
+          rank = (uint32_t)cnt[s * warps + warp] + (uint32_t)(j - seen);
+        }
+        seen += c;
       }
-      next += (uint32_t)total;
+      if (i >= 0) {
+        uint32_t w;
+        const Pole p = fresh(next + rank, &w);
+        store(pole, i, p);
+        rng[first + i] = (int32_t)w;
+        ck[i] = __fadd_rn(ck[i], p.x);
+      }
     }
+    __syncwarp();  // the owners read the drawn worlds next step
     base += all;
+    PHASE_STAMP(PH_DRAWS);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) cnt_out[0] = (int64_t)base;
+#ifdef CP_PHASE_STAMPS
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < PH_PHASES; ++k)
+      atomicAdd(&cp_phase_clocks[k], (unsigned long long)ph_clocks[k]);
+    atomicAdd(&cp_phase_clocks[PH_PHASES], 1ull);
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    cp_phase_span[2] = global_ns();
+    cp_phase_span[3] = clock64();
+  }
+#endif
+  if (ONCHIP) {
+    for (int s = 0; s < slots; ++s) {
+      const int i = s * block + tid, n = first + i;
+      if (n < N) {
+        st[n] = pole[i];
+        arng[n] = (int32_t)aw[i];
+        chk[n] = ck[i];
+        dcnt[n] = dc[i];
+      }
+    }
+  }
+  if (blockIdx.x == 0 && tid == 0) cnt_out[0] = (int64_t)base;
+}
+
+__global__ void __launch_bounds__(K6_THREADS, 1) cp_rollout_onchip_kernel(CP_ROLLOUT_PARAMS) {
+  rollout<true>(CP_ROLLOUT_ARGS);
+}
+
+__global__ void __launch_bounds__(THREADS) cp_rollout_kernel(CP_ROLLOUT_PARAMS) {
+  rollout<false>(CP_ROLLOUT_ARGS);
+}
+
+// K6's shape: the on-chip kernel with the fewest slots at which blocks of
+// whole warps (at most K6_THREADS) spread N worlds over every SM, each block
+// resident with its carry in shared memory; else the device-memory kernel
+// on the resident grid.
+struct Shape {
+  bool onchip;
+  int blocks, threads, slots;
+  size_t smem;
+};
+
+cudaError_t rollout_shape(int N, int device, Shape* sh) {
+  int sms = 0, optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const void* kernel = (const void*)cp_rollout_onchip_kernel;
+  for (int k = 1; k <= K6_MAX_SLOTS; ++k) {
+    const int per_sm = (N + sms * k - 1) / (sms * k);  // threads an SM at k slots
+    const int threads = (per_sm + 31) / 32 * 32;
+    if (threads > K6_THREADS) continue;
+    const size_t need = (size_t)k * threads * CARRY_BYTES;
+    if (need + K6_STATIC_SMEM > (size_t)optin) break;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
+    if (err != cudaSuccess) return err;
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, need);
+    if (err != cudaSuccess) return err;
+    const int g = (N + k * threads - 1) / (k * threads);
+    if (g <= resident * sms) {
+      *sh = Shape{true, g, threads, k, need};
+      return cudaSuccess;
+    }
+  }
+  int max_blocks = 0;
+  err = episode::resident_blocks((const void*)cp_rollout_kernel, device, &max_blocks);
+  if (err != cudaSuccess) return err;
+  *sh = Shape{false, 0, THREADS, 0, 0};
+  episode::split(N, max_blocks, &sh->blocks, &sh->slots);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-int cp_scratch_ints(int N) { return episode::scratch_ints(N); }
+// Ints of scratch a launch over N worlds needs: two parities of block
+// counts, K6's blocks holding at least one warp of worlds.
+int cp_scratch_ints(int N) { return 2 * ((N + 31) / 32); }
 
 int cp_step(const float* st_in, const int32_t* rng_in, const int32_t* act,
             const int64_t* cnt_in, float* st_out, int32_t* rng_out, bool* done,
@@ -277,23 +479,46 @@ int cp_rollout(const float* st_in, const int32_t* rng_in, const int32_t* arng_in
                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int max_blocks = 0, blocks = 0, slots = 0;
-  err = episode::resident_blocks((const void*)cp_rollout_kernel, device, &max_blocks);
+  Shape sh;
+  err = rollout_shape(N, device, &sh);
   if (err != cudaSuccess) return (int)err;
-  episode::split(N, max_blocks, &blocks, &slots);
-  if (slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
+  if (sh.slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
   const float4* st_in4 = reinterpret_cast<const float4*>(st_in);
   float4* st4 = reinterpret_cast<float4*>(st);
   void* args[] = {(void*)&st_in4, (void*)&rng_in, (void*)&arng_in, (void*)&cnt_in,
                   (void*)&st4,    (void*)&rng,    (void*)&arng,    (void*)&dcnt,
                   (void*)&chk,    (void*)&cnt_out, (void*)&scratch, (void*)&N,
-                  (void*)&T,      (void*)&slots};
-  err = cudaLaunchCooperativeKernel((const void*)cp_rollout_kernel, dim3(blocks), dim3(THREADS),
-                                    args, 0, (cudaStream_t)stream);
+                  (void*)&T,      (void*)&sh.slots};
+  const void* kernel =
+      sh.onchip ? (const void*)cp_rollout_onchip_kernel : (const void*)cp_rollout_kernel;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(sh.blocks), dim3(sh.threads), args, sh.smem,
+                                    (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// 1 where K6 runs N worlds with their carry on chip, 0 where in device
+// memory, or a negative error.
+int cp_rollout_onchip(int N, int device) {
+  Shape sh;
+  const cudaError_t err = rollout_shape(N, device, &sh);
+  return err != cudaSuccess ? -(int)err : (int)sh.onchip;
+}
+
 const char* cp_error_string(int err) { return episode::error_string(err); }
+
+#ifdef CP_PHASE_STAMPS
+// The phase sums of the rollouts since the last call (PH_PHASES clocks and
+// the number of warps), zeroed here, and the last rollout's span.
+int cp_phase_take(unsigned long long* clocks, long long* span) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(clocks, cp_phase_clocks, sizeof(cp_phase_clocks));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(span, cp_phase_span, sizeof(cp_phase_span));
+  const unsigned long long zero[PH_PHASES + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(cp_phase_clocks, zero, sizeof(zero));
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

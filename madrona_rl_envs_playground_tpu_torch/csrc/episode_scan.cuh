@@ -15,7 +15,9 @@
 //   * across blocks, every block writes its total to a buffer, and after a
 //     barrier (the end of a launch, or a grid-wide sync in the persistent
 //     kernels) `block_offsets` sums the totals of the blocks before it, and of
-//     all blocks, over the whole block.
+//     all blocks, over the whole block;
+//   * or, in a kernel of one launch without a grid-wide sync (K3),
+//     `look_back` sums them as each block's predecessors publish them.
 //
 // The world -> (block, slot, thread) map below assigns each block a
 // contiguous run of worlds, so (block, slot, thread) order is world order,
@@ -152,6 +154,49 @@ __device__ __forceinline__ void block_offsets(const int* totals, int b, int G,
   *before = (uint32_t)tb;
   *all = (uint32_t)ta;
   __syncthreads();
+}
+
+// ---- the single-pass scan (one launch, no grid-wide sync) -------------------
+//
+// A kernel whose blocks each own a tile of worlds ranks them in one launch
+// by a decoupled look-back (Merrill and Garland, "Single-pass Parallel
+// Prefix Scan with Decoupled Look-back"): tile t publishes its count, then
+// its inclusive prefix, in flags[t] (status 1 or 2 in the high word, the
+// value in the low one); its exclusive prefix sums the counts of the tiles
+// before it back to the nearest inclusive prefix.  Tiles are
+// numbered by a ticket taken as each block starts, so every tile a block
+// waits on belongs to a block that started before it.  The ticket and the
+// flags must be zero at launch.
+
+__device__ __forceinline__ unsigned long long take_ticket(unsigned long long* ticket) {
+  return atomicAdd(ticket, 1ull);
+}
+
+// Tile `tile`'s exclusive prefix of the counts in tile order, for a tile of
+// `count`; called by one whole warp, which returns it on every lane.
+__device__ __forceinline__ uint32_t look_back(unsigned long long* flags, int tile,
+                                              uint32_t count) {
+  const int lane = threadIdx.x & 31;
+  volatile unsigned long long* f = flags;
+  if (lane == 0) f[tile] = (tile == 0 ? 2ull : 1ull) << 32 | count;
+  uint32_t before = 0;
+  for (int p = tile - 1; p >= 0;) {
+    // lane l reads tile p - l; before tile 0 the prefix is 0
+    const unsigned long long v = p - lane >= 0 ? f[p - lane] : 2ull << 32;
+    const unsigned inc = __ballot_sync(FULL_MASK, (v >> 32) == 2u);
+    const unsigned wait = __ballot_sync(FULL_MASK, (v >> 32) == 0u);
+    // the lanes up to the nearest inclusive prefix are the ones to add
+    const unsigned upto = inc ? ((inc & (0u - inc)) << 1) - 1u : FULL_MASK;
+    if (wait & upto) continue;  // a tile has not published yet: read again
+    uint32_t s = (upto >> lane) & 1u ? (uint32_t)v : 0u;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(FULL_MASK, s, d);
+    before += s;
+    if (inc) break;
+    p -= 32;
+  }
+  if (lane == 0 && tile > 0) f[tile] = 2ull << 32 | (before + count);
+  return before;
 }
 
 }  // namespace episode

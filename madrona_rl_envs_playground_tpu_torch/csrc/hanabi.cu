@@ -1,19 +1,23 @@
 // Hanabi kernels for Hopper (sm_90a), 2-player configs, bound through a
 // plain C interface and loaded with ctypes (ops/hanabi.py).
 //
-// K3 `hk_step_kernel` + `hk_reset_kernel` replace the per-step Pallas kernel
+// K3 `hk_step_kernel` replaces the per-step Pallas kernel
 //   madrona_rl_envs_playground_tpu/ops/hanabi_megakernel.py::_build_kernel
 //   (body _make_body, _load_state, _store_state; launched by fused_step):
 //   discard / play / reveal, the random-swap replacement draw or the
 //   empty-deck shift, turn / score / life termination, the world-order
-//   episode index of every reset and its closed-form deal, and the 658-bit
-//   observation, own-hand and legal-mask encodes with the stale-seat rule.
-//   One fused_step is these two launches: the first steps every world and
-//   writes each block's count of done worlds; the second ranks the done
-//   worlds (csrc/episode_scan.cuh), deals their fresh games, and writes the
-//   refreshed seats' encodes (the others' bytes are copied from the input
-//   buffers).  The launch boundary is the barrier between the two halves of
-//   the scan.
+//   episode index of every reset and its deal, and the 658-bit observation,
+//   own-hand and legal-mask encodes with the stale-seat rule, in one
+//   launch.  A block owns a tile of 32 contiguous worlds, taken by a ticket
+//   in the order the blocks start: it stages the tile's state in shared
+//   memory and steps it one world a lane of its first warp, while its other
+//   warps load the tile's obs, own and mask rows (one contiguous run of
+//   each) into shared memory as 16-byte words; it ranks its ended worlds
+//   over the batch by a decoupled look-back (csrc/episode_scan.cuh) and
+//   deals them from its first lanes; then every thread writes a refreshed
+//   seat's bytes over the loaded ones, each from a section table
+//   (ops/hanabi.py::encode_table) and the seat's values, and the rows go out
+//   as 16-byte words.
 // K4 `hk_rollout_onchip_kernel<C, R>` and `hk_rollout_kernel<C, R>` replace
 //   the persistent rollout Pallas kernel
 //   ops/hanabi_megakernel.py::_build_rollout_kernel (fused_rollout): T
@@ -45,8 +49,8 @@
 // coalesced; block b owns a contiguous run of slots * THREADS worlds
 // (episode_scan.cuh's `world`).  The scalars and the hands of a world live
 // in registers during a step (struct Game, indexed only by unrolled loop
-// counters).  K3's encodes go straight into the env-major [N, P, bits]
-// buffers the policy reads, packed into aligned 32-bit stores (ByteSink).
+// counters).  K3 writes the env-major [N, P, bits] buffers the policy reads;
+// a block's rows of each are one contiguous run.
 //
 // K4's carry.  At launch K4 transcodes the [rows, N] state into one record
 // per world (Rec: 192 B in the full config, 144 small, 128 very_small) and
@@ -85,9 +89,11 @@
 // world, reads the stale seat's 803 B of obs / own / mask and writes both
 // seats' 1,606 B, reads the acting seat's action and writes 5 B of reward
 // and done: about 3.5 KB per world-step, against a few hundred integer
-// operations, so device-memory bytes bound it; its per-thread rows of 658 B
-// are written 658 B apart across a warp (uncoalesced), which is the first
-// thing to fix.  K4 reads and writes the state once per launch and does a
+// operations for the step and about ten per encoded byte, so device-memory
+// bytes bound it: its loads and stores are whole 16-byte words of
+// consecutive lanes, the state's rows 128 B a warp.  Below some thousands
+// of worlds the launch itself (a memset of the scan's flags and one kernel)
+// takes the time.  K4 reads and writes the state once per launch and does a
 // few hundred integer operations per world-step (the step, the legal draw,
 // one refreshed seat's closed-form sum), so operations bound it; in
 // practice the grid-wide sync and the scan of the block counts each step,
@@ -117,21 +123,26 @@ constexpr int ERR_BAD_CONFIG = -2;
 enum { DS, INFO, LIFE, CUR, TURNS, SCORE, LMM, LMP, LMT, LMCI, LMSC, LMIT, LMC, LMR, LMRB, RNG };
 enum { M_DISCARD, M_PLAY, M_REVEAL_C, M_REVEAL_R, M_INVALID };
 
-// The config's sizes and the state's row offsets, a flat array of ints in
-// this order from ops/hanabi.py::_cfg, which owns the layout.
+// The config's sizes, the state's row offsets and the first index of each
+// group of a seat's values (K3), a flat array of ints in this order from
+// ops/hanabi.py::_cfg, which owns both layouts (row_offsets, value_layout).
 struct Cfg {
   int C, R, max_info, max_life;
   int CR, cpc, M, deck_bits, obs, own, A;
   int r_deck, r_disc, r_fw, r_scal, r_hc, r_hp, r_hs, r_kc, r_kr, rows;
+  int v_pc, v_nf, v_ds, v_fw, v_info, v_life, v_disc, v_ra, v_lmm, v_rt, v_rc, v_rr, v_rb,
+      v_ci, v_cid, v_sc, v_it, v_pb, v_kc, v_kr, v_oc, v_lg, values;
 };
-constexpr int CFG_INTS = 21;
+constexpr int CFG_INTS = 44;
 static_assert(sizeof(Cfg) == CFG_INTS * sizeof(int), "Cfg is read as a flat int array");
 
-// Returns false outside the envelope the kernels hold in 32-bit masks.
+// Returns false outside the envelope the kernels hold in 32-bit masks and
+// the section table in bytes.
 bool make_cfg(const int* in, int n, Cfg* c) {
   if (n != CFG_INTS) return false;
   std::memcpy(c, in, sizeof(Cfg));
-  return c->CR <= 32 && c->A <= 32 && c->deck_bits >= 0 && c->rows > 0;
+  return c->CR <= 32 && c->A <= 32 && c->deck_bits >= 0 && c->rows > 0 && c->values > 0 &&
+         c->values <= 255;
 }
 
 // Copies of each card of rank r among R ranks: 3 of rank 0, 1 of the top
@@ -371,54 +382,35 @@ __device__ __forceinline__ void fresh_scalars(const Cfg& c, Game& g, uint32_t v)
   s[RNG] = (int)v;
 }
 
-// A fresh game for episode `idx` in the world's column (K3).  The D swap
-// draws of the deal are resolved in closed form: positions from D LCG words
-// of the TEA seed, then a last-write-wins cascade over the touched
-// positions.
-__device__ void deal(const Cfg& c, Col col, Game& g, uint32_t idx) {
+// A fresh game for episode `idx` in a world's column of K3's state tile: the
+// unshuffled deck, then the D swap draws in order (draw k takes the card at
+// a position among the M - k left and moves the last one there), as
+// envs/hanabi.py::init_core and K4's deal_rec do.
+__device__ void deal_tile(const Cfg& c, Col col, uint32_t idx, const int32_t* deck0) {
+  for (int m = 0; m < c.M; ++m) col.set_deck(m, deck0[m]);
+  Game g;
   uint32_t v = episode::tea_seed(idx);
-  int locs[D], moved[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) {
     v = episode::lcg_next(v);
-    locs[k] = __float2int_rz(__fmul_rn((float)(c.M - k), episode::unif(v)));
-  }
-  // moved[j] = the card at position M-1-j just before draw j
-#pragma unroll
-  for (int j = 0; j < D; ++j) {
-    const int tgt = c.M - 1 - j;
-    int val = orig_card(c, tgt);
-#pragma unroll
-    for (int i = 0; i < j; ++i)
-      if (locs[i] == tgt) val = moved[i];
-    moved[j] = val;
-  }
-  // dealt card k = the last value written at locs[k] (the original if none)
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    int val = orig_card(c, locs[k]);
-#pragma unroll
-    for (int j = 0; j < k; ++j)
-      if (locs[j] == locs[k]) val = moved[j];
-    g.hc[k / H][k % H] = val;
-  }
-  for (int m = 0; m < c.M; ++m) {
-    int val = orig_card(c, m);
-#pragma unroll
-    for (int j = 0; j < D; ++j)
-      if (locs[j] == m) val = moved[j];
-    col[c.r_deck + m] = val;
+    const int loc = __float2int_rz(__fmul_rn((float)(c.M - k), episode::unif(v)));
+    g.hc[k / H][k % H] = col.deck(loc);
+    col.set_deck(loc, col.deck(c.M - 1 - k));
   }
   for (int k = 0; k < c.CR; ++k) col[c.r_disc + k] = 0;
   for (int k = 0; k < c.C; ++k) col[c.r_fw + k] = 0;
   fresh_scalars(c, g, v);
+  store_game(c, col, g);
 }
 
 // ---- the encodes (envs/hanabi.py::_encode_seat, legal_mask) ---------------
 
 // Bit k of the result: move k is legal for a seat whose hand holds `size`
 // live cards, whose partner holds `pc` (dead slots included), with `info`
-// info tokens.
+// info tokens.  A partner card shows its colour pc / R where that lies in
+// [0, C) and its rank pc % R where that lies in [0, R), as the reference's
+// any-of-the-hand tests do for every int32; K4's envelope holds every card
+// in [0, C*R), so its instantiations skip the range tests.
 template <int C_, int R_>
 __device__ __forceinline__ uint32_t legal_bits(const Cfg& c, int size, const int (&pc)[H],
                                                int info) {
@@ -429,29 +421,20 @@ __device__ __forceinline__ uint32_t legal_bits(const Cfg& c, int size, const int
     if (h < size && info < c.max_info) bits |= 1u << h;
     if (h < size) bits |= 1u << (H + h);
   }
-  if (info > 0 && C_ > 0) {
-    // K4's envelope holds every card in [0, C*R): one bit per card's colour
-    // and rank
+  if (info > 0) {
     uint32_t colors = 0u, ranks = 0u;
 #pragma unroll
     for (int h = 0; h < H; ++h) {
-      colors |= 1u << (pc[h] / d.R);
-      ranks |= 1u << (pc[h] % d.R);
+      const int col = pc[h] / d.R, rank = pc[h] % d.R;
+      if (C_ > 0) {
+        colors |= 1u << col;
+        ranks |= 1u << rank;
+      } else {
+        colors |= (unsigned)col < (unsigned)d.C ? 1u << col : 0u;
+        ranks |= (unsigned)rank < (unsigned)d.R ? 1u << rank : 0u;
+      }
     }
     bits |= colors << (2 * H) | ranks << (2 * H + d.C);
-  } else if (info > 0) {
-    for (int k = 0; k < d.C; ++k) {
-      bool any = false;
-#pragma unroll
-      for (int h = 0; h < H; ++h) any |= pc[h] / d.R == k;
-      if (any) bits |= 1u << (2 * H + k);
-    }
-    for (int r = 0; r < d.R; ++r) {
-      bool any = false;
-#pragma unroll
-      for (int h = 0; h < H; ++h) any |= pc[h] % d.R == r;
-      if (any) bits |= 1u << (2 * H + d.C + r);
-    }
   }
   return bits;
 }
@@ -464,201 +447,311 @@ __device__ __forceinline__ uint32_t seat_legal(const Cfg& c, const Game& g, int 
   return legal_bits<C_, R_>(c, a == 0 ? g.hs[0] : g.hs[1], pc, g.s[INFO]);
 }
 
-// Writes 0/1 bytes from `dst` on, packed into aligned 32-bit stores once
-// the address is aligned.
-struct ByteSink {
-  uint8_t* p;
-  uint32_t acc;
-  int n;  // bytes held in acc; the word they fill starts at p
-  __device__ __forceinline__ explicit ByteSink(uint8_t* dst) : p(dst), acc(0u), n(0) {}
-  __device__ __forceinline__ void put(bool b) {
-    if (n == 0 && (reinterpret_cast<uintptr_t>(p) & 3u)) {
-      *p++ = (uint8_t)b;
-      return;
-    }
-    acc |= (uint32_t)b << (8 * n);
-    if (++n == 4) {
-      *reinterpret_cast<uint32_t*>(p) = acc;
-      p += 4;
-      acc = 0u;
-      n = 0;
-    }
-  }
-  __device__ __forceinline__ void flush() {
-    for (int i = 0; i < n; ++i) p[i] = (uint8_t)(acc >> (8 * i));
-    p += n;
-    acc = 0u;
-    n = 0;
-  }
-};
-
-// Seat a's observation bits, in envs/hanabi.py::_encode_seat's order.
-template <class Sink>
-__device__ void encode_obs(const Cfg& c, Col col, const Game& g, int a, Sink& o) {
-  const int* s = g.s;
-  const int q = 1 - a;  // the partner
-  // hands: the partner's cards, then "hand not full" of (a, partner)
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const bool live = h < g.hs[q];
-    const int card = SEAT(g.hc, q, h);
-    for (int b = 0; b < c.CR; ++b) o.put(live && card == b);
-  }
-  o.put(g.hs[a] < H);
-  o.put(g.hs[q] < H);
-  // board
-  for (int i = 0; i < c.deck_bits; ++i) o.put(i < s[DS]);
-  for (int k = 0; k < c.C; ++k) {
-    const int f = col[c.r_fw + k];
-    for (int r = 0; r < c.R; ++r) o.put(f == r + 1);
-  }
-  for (int i = 0; i < c.max_info; ++i) o.put(i < s[INFO]);
-  for (int i = 0; i < c.max_life; ++i) o.put(i < s[LIFE]);
-  // discards: card id k's count against thresholds 0..copies-1
-  for (int k = 0; k < c.CR; ++k) {
-    const int d = col[c.r_disc + k];
-    const int n = copies(k % c.R, c.R);
-    for (int i = 0; i < n; ++i) o.put(d > i);
-  }
-  // last action
-  const int lmm = s[LMM], lmc = s[LMC], lmr = s[LMR];
-  const int rel_actor = s[LMP] == -1 ? -1 : (a - s[LMP] + P) % P;
-#pragma unroll
-  for (int p = 0; p < P; ++p) o.put(p == rel_actor);
-  o.put(lmm == M_PLAY);
-  o.put(lmm == M_DISCARD);
-  o.put(lmm == M_REVEAL_C);
-  o.put(lmm == M_REVEAL_R);
-  const bool is_reveal = lmm == M_REVEAL_C || lmm == M_REVEAL_R;
-  const int rel_target = (a - s[LMT] + P) % P;  // LMT >= -1
-#pragma unroll
-  for (int p = 0; p < P; ++p) o.put(is_reveal && p == rel_target);
-  for (int k = 0; k < c.C; ++k) o.put(lmm == M_REVEAL_C && k == lmc);
-  for (int r = 0; r < c.R; ++r) o.put(lmm == M_REVEAL_R && r == lmr);
-#pragma unroll
-  for (int h = 0; h < H; ++h) o.put(is_reveal && ((s[LMRB] >> h) & 1));
-  const bool is_pd = lmm == M_PLAY || lmm == M_DISCARD;
-#pragma unroll
-  for (int h = 0; h < H; ++h) o.put(is_pd && h == s[LMCI]);
-  for (int k = 0; k < c.CR; ++k) o.put(is_pd && k == lmc * c.R + lmr);
-  o.put(lmm == M_PLAY && s[LMSC] != 0);
-  o.put(lmm == M_PLAY && s[LMIT] != 0);
-  // card knowledge of (a, partner); the plausible bit is the offset's
-#pragma unroll
-  for (int off = 0; off < P; ++off) {
-    const int k = (a + off) % P;
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const bool live = h < (k == 0 ? g.hs[0] : g.hs[1]);
-      const bool pb = live && ((SEAT(g.hp, k, h) >> off) & 1u);
-      const int kc = SEAT(g.kc, k, h), kr = SEAT(g.kr, k, h);
-      for (int b = 0; b < c.CR; ++b) o.put(pb);
-      for (int x = 0; x < c.C; ++x) o.put(live && kc == x);
-      for (int r = 0; r < c.R; ++r) o.put(live && kr == r);
-    }
-  }
-}
-
-// Seat a's own hand (the state tensor's tail).
-template <class Sink>
-__device__ __forceinline__ void encode_own(const Cfg& c, const Game& g, int a, Sink& o) {
-  const int size = a == 0 ? g.hs[0] : g.hs[1];
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const int card = SEAT(g.hc, a, h);
-    for (int b = 0; b < c.CR; ++b) o.put(h < size && card == b);
-  }
-}
-
-template <class Sink>
-__device__ __forceinline__ void encode_mask(const Cfg& c, uint32_t bits, Sink& o) {
-  for (int k = 0; k < c.A; ++k) o.put((bits >> k) & 1u);
-}
-
-__device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src, int len) {
-  // dst and src sit at the same offset from 16-byte-aligned bases
-  int i = 0;
-  for (; i < len && (reinterpret_cast<uintptr_t>(dst + i) & 3u); ++i) dst[i] = src[i];
-  for (; i + 4 <= len; i += 4)
-    *reinterpret_cast<uint32_t*>(dst + i) = *reinterpret_cast<const uint32_t*>(src + i);
-  for (; i < len; ++i) dst[i] = src[i];
-}
-
 // ---- K3 ---------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-hk_step_kernel(const Cfg c, const int32_t* __restrict__ st_in, const int32_t* __restrict__ act,
-               int32_t* __restrict__ st_out, int32_t* __restrict__ rew_out,
-               bool* __restrict__ done_out, int* __restrict__ totals, int N, int slots) {
-  int count = 0;
-  for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
-    bool done = false;
-    if (n < N) {
-      const Col in{const_cast<int32_t*>(st_in) + n, N, &c}, out{st_out + n, N, &c};
-      for (int r = 0; r < c.r_scal; ++r) out[r] = in[r];  // deck, discards, fireworks
-      Game g;
-      load_game(c, in, g);
-      int rew;
-      done = transition<0, 0>(c, out, g, act[(size_t)n * P + g.s[CUR]], &rew);
-      store_game(c, out, g);  // the reset kernel deals the done worlds
-      rew_out[n] = rew;
-      done_out[n] = done;
-    }
-    count += __syncthreads_count(done);
-  }
-  if (threadIdx.x == 0) totals[blockIdx.x] = count;
+// A block steps K3_WORLDS contiguous worlds, one thread of its first warp
+// each, and all K3_WARPS warps write their encodes.
+constexpr int K3_WORLDS = 32;
+constexpr int K3_THREADS = 256;
+constexpr int K3_WARPS = K3_THREADS / 32;
+static_assert(K3_WORLDS * P <= 64, "a block's seats fit one 64-bit mask");
+
+// Seat a's values (ops/hanabi.py::value_layout, at the group starts Cfg
+// carries), each int8 clamped to [-1, 64]: every byte of the seat's obs, own hand and mask is
+// one of them tested against a range of the section table
+// (ops/hanabi.py::encode_table; constants 0..63, so the clamp keeps every
+// test), with the reference's quirks of its encode: the plausible bit of a
+// knowledge slot is bit `offset` of its mask, broadcast over the CR bytes,
+// and rel_target is taken for LMT = -1 too (the reveal flag gates it).
+// Bytes between two seats' values: 2 mod 4, so that the 32 worlds of one
+// seat, 2 rows apart, write to 32 different banks.
+__host__ __device__ __forceinline__ int value_stride(const Cfg& c) {
+  const int n = c.values;
+  return n + ((2 - n) & 3);
 }
 
-__global__ void __launch_bounds__(THREADS)
-hk_reset_kernel(const Cfg c, const bool* __restrict__ done_in, const int64_t* __restrict__ cnt_in,
-                const int* __restrict__ totals, int32_t* __restrict__ st,
-                const int8_t* __restrict__ obs_in, const int8_t* __restrict__ own_in,
-                const bool* __restrict__ mask_in, int8_t* __restrict__ obs_out,
-                int8_t* __restrict__ own_out, bool* __restrict__ mask_out,
-                int64_t* __restrict__ cnt_out, int N, int slots) {
-  __shared__ int smem[episode::SCAN_SMEM_INTS];
-  uint32_t before, unused;
-  episode::block_offsets(totals, blockIdx.x, blockIdx.x, smem, &before, &unused);
-  uint32_t next = (uint32_t)cnt_in[0] + before;  // index of the next reset
-  for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
-    const bool done = n < N && done_in[n];
-    int total;
-    const int rank = episode::block_rank(done, smem, &total);
-    if (n < N) {
-      const Col col{st + n, N, &c};
+// Part 0 writes the values up to the last move's flags, part 1 the rest
+// (the knowledge blocks, the own cards and the legal moves): about half of
+// them each.
+__device__ void seat_values(const Cfg& c, const int32_t* S, int w, int a, int part, int8_t* v) {
+  const auto at = [&](int row) { return S[row * K3_WORLDS + w]; };
+  const auto sc = [&](int k) { return at(c.r_scal + k); };
+  const auto put = [&](int i, int x) { v[i] = (int8_t)min(max(x, -1), 64); };
+  const int q = 1 - a;
+  const int hs0 = at(c.r_hs), hs1 = at(c.r_hs + 1);
+  const int hs_a = a == 0 ? hs0 : hs1, hs_q = a == 0 ? hs1 : hs0;
+  int pc[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) pc[h] = at(c.r_hc + q * H + h);
+  if (part == 0) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) put(c.v_pc + h, h < hs_q ? pc[h] : -1);
+    put(c.v_nf, hs_a < H);
+    put(c.v_nf + 1, hs_q < H);
+    put(c.v_ds, sc(DS));
+    for (int k = 0; k < c.C; ++k) put(c.v_fw + k, at(c.r_fw + k));
+    put(c.v_info, sc(INFO));
+    put(c.v_life, sc(LIFE));
+    for (int k = 0; k < c.CR; ++k) put(c.v_disc + k, at(c.r_disc + k));
+    const int lmm = sc(LMM), lmp = sc(LMP), lmc = sc(LMC), lmr = sc(LMR);
+    const bool is_reveal = lmm == M_REVEAL_C || lmm == M_REVEAL_R;
+    const bool is_pd = lmm == M_PLAY || lmm == M_DISCARD;
+    put(c.v_ra, lmp == -1 ? -1 : (a - lmp + P) % P);
+    put(c.v_lmm, lmm);
+    put(c.v_rt, is_reveal ? (a - sc(LMT) + P) % P : -1);
+    put(c.v_rc, lmm == M_REVEAL_C ? lmc : -1);
+    put(c.v_rr, lmm == M_REVEAL_R ? lmr : -1);
+    const int lmrb = sc(LMRB);
+#pragma unroll
+    for (int h = 0; h < H; ++h) put(c.v_rb + h, is_reveal && ((lmrb >> h) & 1));
+    put(c.v_ci, is_pd ? sc(LMCI) : -1);
+    put(c.v_cid, is_pd ? lmc * c.R + lmr : -1);
+    put(c.v_sc, lmm == M_PLAY && sc(LMSC) != 0);
+    put(c.v_it, lmm == M_PLAY && sc(LMIT) != 0);
+    return;
+  }
+  // knowledge: seat (a + off) % P's slots (a's own, then the partner's):
+  // the plausible bits, colours, ranks
+#pragma unroll
+  for (int off = 0; off < P; ++off)
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int k = off == 0 ? a : q;
+      put(c.v_pb + off * H + h,
+          h < (off == 0 ? hs_a : hs_q) && (((uint32_t)at(c.r_hp + k * H + h) >> off) & 1u));
+    }
+#pragma unroll
+  for (int off = 0; off < P; ++off)
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int k = off == 0 ? a : q;
+      put(c.v_kc + off * H + h, h < (off == 0 ? hs_a : hs_q) ? at(c.r_kc + k * H + h) : -1);
+    }
+#pragma unroll
+  for (int off = 0; off < P; ++off)
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int k = off == 0 ? a : q;
+      put(c.v_kr + off * H + h, h < (off == 0 ? hs_a : hs_q) ? at(c.r_kr + k * H + h) : -1);
+    }
+#pragma unroll
+  for (int h = 0; h < H; ++h) put(c.v_oc + h, h < hs_a ? at(c.r_hc + a * H + h) : -1);
+  const uint32_t legal = legal_bits<0, 0>(c, hs_a, pc, sc(INFO));
+  for (int k = 0; k < c.A; ++k) put(c.v_lg + k, (legal >> k) & 1u);
+}
+
+// A block's rows of one per-seat buffer of `len`-byte rows (row = world * P
+// + seat; they are contiguous): bytes [g0, g1) of the buffer, held in
+// shared memory as the 16-byte words [a0, a1) that cover them.
+struct Run {
+  size_t g0, g1, a0, a1;
+  __device__ __forceinline__ Run(size_t row0, int nrows, int len)
+      : g0(row0 * len), g1(row0 * len + (size_t)nrows * len),
+        a0(row0 * len & ~(size_t)15), a1((row0 * len + (size_t)nrows * len + 15) & ~(size_t)15) {}
+  __device__ __forceinline__ int words() const { return (int)((a1 - a0) / 16); }
+};
+
+// Word k of the run of `in` (a tensor of `total` bytes), the bytes past
+// its end 0.
+__device__ __forceinline__ uint4 run_word(const Run& run, const uint8_t* __restrict__ in,
+                                          size_t total, int k) {
+  const size_t w = run.a0 + 16 * (size_t)k;
+  if (w + 16 <= total) return *reinterpret_cast<const uint4*>(in + w);
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+  for (int b = 0; w + b < total; ++b) v[b / 4] |= (uint32_t)in[w + b] << (8 * (b % 4));
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// The refreshed rows' bytes of the run into `img`, one byte a thread
+// (consecutive threads, consecutive table entries): byte `off` of row r is
+// value tab[off] of the row's values tested against its range.  `rows`
+// lists the nf refreshed rows.
+__device__ __forceinline__ void fill_run(const Run& run, int len, const uint32_t* tab,
+                                         const int8_t* vals, int vs, const uint8_t* rows, int nf,
+                                         uint8_t* img) {
+  // k / len == __umulhi(k, inv) for every k < 2^32 / len (here k < 64 * len)
+  const uint32_t inv = 0xFFFFFFFFu / (uint32_t)len + 1u;
+  uint8_t* base = img + (run.g0 - run.a0);
+#pragma unroll 4
+  for (uint32_t k = threadIdx.x; k < (uint32_t)(nf * len); k += K3_THREADS) {
+    const uint32_t f = __umulhi(k, inv), off = k - f * (uint32_t)len;
+    const int r = rows[f];
+    const uint32_t e = tab[off];
+    const int v = vals[r * vs + (e & 0xFFu)];
+    base[r * len + off] = (uint32_t)(v - (int)((e >> 8) & 0xFFu)) <= (e >> 16);
+  }
+}
+
+// The run from `img` into `out`: whole 16-byte words, and the first and last
+// words, which neighbouring blocks share, byte by byte.
+__device__ __forceinline__ void store_run(const Run& run, const uint8_t* img,
+                                          uint8_t* __restrict__ out) {
+  for (int k = threadIdx.x; k < run.words(); k += K3_THREADS) {
+    const size_t w = run.a0 + 16 * (size_t)k;
+    if (w >= run.g0 && w + 16 <= run.g1) {
+      *reinterpret_cast<uint4*>(out + w) = *reinterpret_cast<const uint4*>(img + 16 * k);
+    } else {
+      for (int b = 0; b < 16; ++b)
+        if (w + b >= run.g0 && w + b < run.g1) out[w + b] = img[16 * k + b];
+    }
+  }
+}
+
+// Bytes of shared memory that hold a run of the block's rows of `len` bytes.
+__host__ __device__ __forceinline__ int run_bytes(int len) {
+  return (K3_WORLDS * P * len + 15) / 16 * 16 + 32;  // up to 15 bytes more at each end
+}
+
+// The own and mask runs' words a thread holds while the obs run is filled:
+// at most 4 (C*R and A at most 32: 772 words over K3_THREADS).
+constexpr int K3_HELD = 4;
+static_assert(((K3_WORLDS * P * 5 * 32 + 30) / 16 + 1 + (K3_WORLDS * P * 32 + 30) / 16 + 1) <=
+                  K3_HELD * K3_THREADS,
+              "a thread holds its own and mask words in K3_HELD registers");
+
+// K3's dynamic shared memory: the block's obs words; the state tile
+// [rows][K3_WORLDS] int32, whose room then takes the own and mask words;
+// the section table, the unshuffled deck, and each seat's values.
+struct K3Smem {
+  int obs, tile, own, mask, tab, deck0, vals, bytes;
+};
+
+__host__ __device__ __forceinline__ K3Smem k3_smem(const Cfg& c, int vs) {
+  K3Smem m;
+  m.obs = 0;
+  m.tile = m.own = run_bytes(c.obs);
+  m.mask = m.own + run_bytes(c.own);
+  const int tile = 4 * c.rows * K3_WORLDS, own_mask = run_bytes(c.own) + run_bytes(c.A);
+  m.tab = m.tile + (tile > own_mask ? tile : own_mask);
+  m.deck0 = m.tab + 4 * (c.obs + c.own + c.A);
+  m.vals = m.deck0 + 4 * c.M;
+  m.bytes = (m.vals + K3_WORLDS * P * vs + 15) / 16 * 16;
+  return m;
+}
+
+__global__ void __launch_bounds__(K3_THREADS, 3)
+hk_step_kernel(const Cfg c, const int32_t* __restrict__ st_in, const uint8_t* __restrict__ obs_in,
+               const uint8_t* __restrict__ own_in, const uint8_t* __restrict__ mask_in,
+               const int32_t* __restrict__ act, const int64_t* __restrict__ cnt_in,
+               const uint32_t* __restrict__ tab_in, int32_t* __restrict__ st_out,
+               uint8_t* __restrict__ obs_out, uint8_t* __restrict__ own_out,
+               uint8_t* __restrict__ mask_out, int32_t* __restrict__ rew_out,
+               bool* __restrict__ done_out, int64_t* __restrict__ cnt_out,
+               unsigned long long* __restrict__ scan, int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int tile_s, nfresh;
+  __shared__ int listed[K3_WORLDS];
+  __shared__ uint8_t rows[K3_WORLDS * P];  // the refreshed rows, in order
+  __shared__ uint64_t fresh_s;
+  const int vs = value_stride(c);
+  const K3Smem L = k3_smem(c, vs);
+  int32_t* S = reinterpret_cast<int32_t*>(smem + L.tile);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + L.tab);
+  int32_t* deck0 = reinterpret_cast<int32_t*>(smem + L.deck0);
+  int8_t* vals = reinterpret_cast<int8_t*>(smem + L.vals);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the tile (a run of K3_WORLDS worlds) in the order the blocks start, so
+  // that every tile the look-back waits on belongs to a running block
+  if (tid == 0) tile_s = (int)episode::take_ticket(scan);
+  for (int i = tid; i < c.obs + c.own + c.A; i += K3_THREADS) tab[i] = tab_in[i];
+  for (int m = tid; m < c.M; m += K3_THREADS) deck0[m] = orig_card(c, m);
+  __syncthreads();
+  const int tile = tile_s, n0 = tile * K3_WORLDS, nw = min(K3_WORLDS, N - n0);
+  for (int r = warp; r < c.rows; r += K3_WARPS)
+    if (lane < nw) S[r * K3_WORLDS + lane] = st_in[(size_t)r * N + n0 + lane];
+  __syncthreads();
+  const size_t row0 = (size_t)n0 * P, rows_total = (size_t)N * P;
+  const Run obs_run(row0, nw * P, c.obs), own_run(row0, nw * P, c.own), mask_run(row0, nw * P, c.A);
+  if (warp == 0) {
+    // the step, one world a lane, on the tile
+    const Col col{S + lane, K3_WORLDS, &c};
+    bool done = false;
+    int rew = 0;
+    if (lane < nw) {
       Game g;
       load_game(c, col, g);
-      if (done) {
-        deal(c, col, g, next + (uint32_t)rank);
-        store_game(c, col, g);
-      }
+      done = transition<0, 0>(c, col, g, act[(size_t)(n0 + lane) * P + g.s[CUR]], &rew);
+      store_game(c, col, g);
+      rew_out[n0 + lane] = rew;
+      done_out[n0 + lane] = done;
+    }
+    // rank the ended worlds over the batch, list them, and deal them from
+    // the first lanes
+    const uint32_t dm = __ballot_sync(episode::FULL_MASK, done);
+    const int count = __popc(dm);
+    const uint32_t before = episode::look_back(scan + 1, tile, (uint32_t)count);
+    const uint32_t first = (uint32_t)cnt_in[0] + before;  // the block's first episode index
+    if (done) listed[__popc(dm & ((1u << lane) - 1u))] = lane;
+    __syncwarp();
+    if (lane < count) {
+      const int w = listed[lane];
+      deal_tile(c, Col{S + w, K3_WORLDS, &c}, first + (uint32_t)lane, deck0);
+    }
+    __syncwarp();
+    // the stale-seat rule: a seat is refreshed where the world ended or the
+    // seat is to act
+    const int cur = S[(c.r_scal + CUR) * K3_WORLDS + lane];
+    const uint32_t f0 = __ballot_sync(episode::FULL_MASK, lane < nw && (done || cur == 0));
+    const uint32_t f1 = __ballot_sync(episode::FULL_MASK, lane < nw && (done || cur == 1));
+    if (lane == 0) {
+      uint64_t f = 0;
+      int nf = 0;
+      for (int w = 0; w < K3_WORLDS; ++w) {
 #pragma unroll
-      for (int a = 0; a < P; ++a) {
-        const size_t row = (size_t)n * P + a;
-        uint8_t* o = reinterpret_cast<uint8_t*>(obs_out) + row * c.obs;
-        uint8_t* w = reinterpret_cast<uint8_t*>(own_out) + row * c.own;
-        uint8_t* m = reinterpret_cast<uint8_t*>(mask_out) + row * c.A;
-        if (done || g.s[CUR] == a) {  // the stale-seat rule
-          ByteSink so(o), sw(w), sm(m);
-          encode_obs(c, col, g, a, so);
-          so.flush();
-          encode_own(c, g, a, sw);
-          sw.flush();
-          encode_mask(c, seat_legal<0, 0>(c, g, a), sm);
-          sm.flush();
-        } else {
-          copy_bytes(o, reinterpret_cast<const uint8_t*>(obs_in) + row * c.obs, c.obs);
-          copy_bytes(w, reinterpret_cast<const uint8_t*>(own_in) + row * c.own, c.own);
-          copy_bytes(m, reinterpret_cast<const uint8_t*>(mask_in) + row * c.A, c.A);
+        for (int a = 0; a < P; ++a) {
+          if (((a == 0 ? f0 : f1) >> w) & 1u) {
+            f |= 1ull << (P * w + a);
+            rows[nf++] = (uint8_t)(P * w + a);
+          }
         }
       }
+      fresh_s = f;
+      nfresh = nf;
+      // the last tile's next index is the counter after the step
+      if (tile == (int)gridDim.x - 1) cnt_out[0] = (int64_t)(first + (uint32_t)count);
     }
-    next += (uint32_t)total;
+  } else {
+    // meanwhile the other warps bring in the block's obs words
+    for (int k = tid - 32; k < obs_run.words(); k += K3_THREADS - 32)
+      *reinterpret_cast<uint4*>(smem + L.obs + 16 * k) =
+          run_word(obs_run, obs_in, rows_total * c.obs, k);
   }
-  // the last block's next index is the counter after the step
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) cnt_out[0] = (int64_t)next;
+  __syncthreads();
+  const uint64_t fresh = fresh_s;
+  for (int r = warp; r < c.rows; r += K3_WARPS)
+    if (lane < nw) st_out[(size_t)r * N + n0 + lane] = S[r * K3_WORLDS + lane];
+  if (tid < 2 * K3_WORLDS * P) {  // two threads a refreshed seat
+    const int w = tid % K3_WORLDS, a = (tid / K3_WORLDS) % P, row = P * w + a;
+    if ((fresh >> row) & 1ull) seat_values(c, S, w, a, tid / (K3_WORLDS * P), vals + row * vs);
+  }
+  __syncthreads();
+  // the own and mask words in flight while the obs run is filled, then into
+  // the tile's room
+  const int own_words = own_run.words(), om_words = own_words + mask_run.words();
+  uint4 held[K3_HELD];
+#pragma unroll
+  for (int u = 0; u < K3_HELD; ++u) {
+    const int k = tid + u * K3_THREADS;
+    if (k < own_words) held[u] = run_word(own_run, own_in, rows_total * c.own, k);
+    else if (k < om_words) held[u] = run_word(mask_run, mask_in, rows_total * c.A, k - own_words);
+  }
+  const int nf = nfresh;
+  fill_run(obs_run, c.obs, tab, vals, vs, rows, nf, smem + L.obs);
+#pragma unroll
+  for (int u = 0; u < K3_HELD; ++u) {
+    const int k = tid + u * K3_THREADS;
+    if (k < own_words)
+      *reinterpret_cast<uint4*>(smem + L.own + 16 * k) = held[u];
+    else if (k < om_words)
+      *reinterpret_cast<uint4*>(smem + L.mask + 16 * (k - own_words)) = held[u];
+  }
+  __syncthreads();
+  store_run(obs_run, smem + L.obs, obs_out);
+  fill_run(own_run, c.own, tab + c.obs, vals, vs, rows, nf, smem + L.own);
+  fill_run(mask_run, c.A, tab + c.obs + c.own, vals, vs, rows, nf, smem + L.mask);
+  __syncthreads();
+  store_run(own_run, smem + L.own, own_out);
+  store_run(mask_run, smem + L.mask, mask_out);
 }
 
 // ---- K4 ---------------------------------------------------------------------
@@ -677,7 +770,7 @@ constexpr int B_SCAL = 4 * (W_DCNT + 1);  // DS .. LMRB, one int8 each
 constexpr int B_HS = B_SCAL + NSCAL - 1;  // hand sizes
 constexpr int B_HC = B_HS + P, B_KC = B_HC + P * H, B_KR = B_KC + P * H;
 // the fireworks' and discards' share of every seat sum (their sections of
-// encode_obs), kept up to date by the board as a step changes them
+// the obs encode), kept up to date by the board as a step changes them
 constexpr int B_FD = B_KR + P * H;
 constexpr int GAME_WORDS = (B_FD + 1 + 15) / 16 * 4;  // 28: bytes 0..111
 constexpr int B_BOARD = 4 * GAME_WORDS;
@@ -815,7 +908,7 @@ __device__ int fd_share(const uint8_t* rec) {
 }
 
 // A seat's sum of obs, own-hand and mask bytes in closed form, section by
-// section of encode_obs, encode_own and encode_mask (ops/hanabi.py's
+// section of envs/hanabi.py's _encode_seat and legal_mask (ops/hanabi.py's
 // seat_sums_plain is the same formula): a one-hot block adds 1 where its
 // value lies in range, a thermometer the clamped count.  The reference's
 // quirks stay: the plausible bit of the knowledge section is bit `offset`
@@ -899,7 +992,7 @@ __device__ void deal_rec(const Cfg& c, uint8_t* rec, uint32_t idx, const uint4* 
     board[i] = i < L::DECK_VECS ? deck0v[i] : make_uint4(0u, 0u, 0u, 0u);
   // the deal's D swap draws in order on the record's deck: draw k takes the
   // card at a position among the M - k left and moves the last one there
-  // (K3's closed form gives the same cards and deck)
+  // (as K3's deal_tile)
   Game g;
   uint8_t* deck = rec + L::B_DECK;
   uint32_t v = episode::tea_seed(idx);
@@ -1165,26 +1258,35 @@ extern "C" {
 
 int hk_scratch_ints(int N) { return episode::scratch_ints(N); }
 
+// K3's scratch: the ticket and one look-back word per tile, 64-bit each.
+int hk_step_scratch_ints(int N) { return 2 * ((N + K3_WORLDS - 1) / K3_WORLDS + 1); }
+
 int hk_step(const int* cfg, int cfg_ints, const int32_t* st_in, const int8_t* obs_in,
             const int8_t* own_in, const bool* mask_in, const int32_t* act,
-            const int64_t* cnt_in, int32_t* st_out, int8_t* obs_out, int8_t* own_out,
-            bool* mask_out, int32_t* rew, bool* done, int64_t* cnt_out, int* scratch, int N,
-            int device, void* stream) {
+            const int64_t* cnt_in, const uint32_t* tab, int32_t* st_out, int8_t* obs_out,
+            int8_t* own_out, bool* mask_out, int32_t* rew, bool* done, int64_t* cnt_out,
+            int* scratch, int N, int device, void* stream) {
   Cfg c;
   if (!make_cfg(cfg, cfg_ints, &c)) return ERR_BAD_CONFIG;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int max_blocks = 0, blocks = 0, slots = 0;
-  err = episode::resident_blocks((const void*)hk_reset_kernel, device, &max_blocks);
-  if (err != cudaSuccess) return (int)err;
-  episode::split(N, max_blocks, &blocks, &slots);
+  const int tiles = (N + K3_WORLDS - 1) / K3_WORLDS;
+  const int bytes = k3_smem(c, value_stride(c)).bytes;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute((const void*)hk_step_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  hk_step_kernel<<<blocks, THREADS, 0, s>>>(c, st_in, act, st_out, rew, done, scratch, N, slots);
-  err = cudaGetLastError();
+  // a zero ticket and no published tile, for every launch
+  err = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) * (tiles + 1), s);
   if (err != cudaSuccess) return (int)err;
-  hk_reset_kernel<<<blocks, THREADS, 0, s>>>(c, done, cnt_in, scratch, st_out, obs_in, own_in,
-                                             mask_in, obs_out, own_out, mask_out, cnt_out, N,
-                                             slots);
+  hk_step_kernel<<<tiles, K3_THREADS, bytes, s>>>(
+      c, st_in, reinterpret_cast<const uint8_t*>(obs_in), reinterpret_cast<const uint8_t*>(own_in),
+      reinterpret_cast<const uint8_t*>(mask_in), act, cnt_in, tab, st_out,
+      reinterpret_cast<uint8_t*>(obs_out), reinterpret_cast<uint8_t*>(own_out),
+      reinterpret_cast<uint8_t*>(mask_out), rew, done, cnt_out,
+      reinterpret_cast<unsigned long long*>(scratch), N);
   return (int)cudaGetLastError();
 }
 

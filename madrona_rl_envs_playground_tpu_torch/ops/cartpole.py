@@ -8,7 +8,9 @@ Two kernels, in ``csrc/cartpole.cu``:
   launches: step and count, then rank and reset;
 * **K6** ``fused_rollout``: T steps in one cooperative launch, actions from
   a per-env LCG (bit 23 of the advanced word), a per-env done count and the
-  checksum ``chk += x`` after every step.
+  checksum ``chk += x`` after every step; each env's carry in shared memory
+  where the resident grid holds it, else in device memory
+  (``rollout_kernel`` names the kernel a batch size gets).
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it runs its plain version (``fused_step_plain``,
@@ -138,6 +140,8 @@ def _lib() -> ctypes.CDLL:
         lib.cp_step.restype = i
         lib.cp_rollout.argtypes = [p] * 11 + [i, i, i, p]
         lib.cp_rollout.restype = i
+        lib.cp_rollout_onchip.argtypes = [i, i]
+        lib.cp_rollout_onchip.restype = i
         lib.cp_error_string.argtypes = [i]
         lib.cp_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -198,6 +202,20 @@ def _fused_rollout_cuda(ts: TState, counter: torch.Tensor, act_rng: torch.Tensor
     _raise_on(rc, "cp_rollout_kernel")
     LAUNCHES["fused_rollout"] += 1
     return TState(st=st, rng=rng), arng, cnt, dcnt, chk
+
+
+def rollout_kernel(num_envs: int, device: DeviceLike = None) -> str:
+    """The K6 kernel ``fused_rollout`` launches for ``num_envs`` envs on the
+    card ``device``, by shape: ``cp_rollout_onchip_kernel`` where the resident
+    grid holds every env's carry in shared memory (up to 8,192 envs an SM),
+    else ``cp_rollout_kernel``, whose carry lies in device memory."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("the rollout kernels run on a CUDA device")
+    rc = _lib().cp_rollout_onchip(int(num_envs), dev.index or 0)
+    if rc < 0:
+        _raise_on(-rc, "cp_rollout_onchip")
+    return "cp_rollout_onchip_kernel" if rc else "cp_rollout_kernel"
 
 
 def fused_step(ts: TState, counter: torch.Tensor, actions: torch.Tensor):

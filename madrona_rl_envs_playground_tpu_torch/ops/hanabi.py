@@ -7,9 +7,11 @@ plain env):
 
 * **K3** ``fused_step``: one game step per env (move resolution, the
   random-swap draw, termination, the world-order episode index of each
-  reset and its closed-form deal, and the obs / own-hand / mask encodes of
-  the refreshed seats, the other seats' bytes kept), as two launches: step
-  and count, then rank, deal and encode;
+  reset and its deal, and the obs / own-hand / mask encodes of the
+  refreshed seats, the other seats' bytes kept), in one launch: a refreshed
+  seat's bytes come from the section table ``encode_table`` and the seat's
+  values (``seat_values_plain`` and ``encodes_plain`` are the same
+  formula);
 * **K4** ``fused_rollout``: T steps in one cooperative launch, each env's
   action drawn uniformly over the active seat's legal moves from a per-env
   LCG (``action_from_mask`` replays the draw), a per-env done count and the
@@ -229,6 +231,13 @@ def fused_rollout_plain(env: Env, ts: TState, counter: torch.Tensor, act_rng: to
     return out, w[None, :], counter, dcnt, chk
 
 
+def copies_of_ranks(env: Env):
+    """Copies of each card of rank r: 3 of rank 0, 1 of the top rank, 2 of
+    the others."""
+    R = env.ranks
+    return [3 if r == 0 else 1 if r == R - 1 else 2 for r in range(R)]
+
+
 def seat_sums_plain(env: Env, ts: TState) -> torch.Tensor:
     """Each seat's sum of the obs, own-hand and mask bytes that a fresh encode
     of the state ``ts.st`` would write, ``[N, P]`` int32, in closed form
@@ -254,8 +263,7 @@ def seat_sums_plain(env: Env, ts: TState) -> torch.Tensor:
     live = slot[None] < hs[:, None]                                        # [P, H, N]
     in_range = lambda x, n: (x >= 0) & (x < n)
     cards = (live & in_range(hc, CR)).sum(1)                               # [P, N]
-    copies = torch.tensor([3 if r == 0 else 1 if r == R - 1 else 2 for r in range(R)] * C,
-                          device=st.device)[:, None]
+    copies = torch.tensor(copies_of_ranks(env) * C, device=st.device)[:, None]
     fw = rows("fw", C)
     lmm, lmc, lmr = sc["lm_move"], sc["lm_color"], sc["lm_rank"]
     is_reveal = (lmm == M_REVEAL_C) | (lmm == M_REVEAL_R)
@@ -293,6 +301,165 @@ def seat_sums_plain(env: Env, ts: TState) -> torch.Tensor:
     return torch.stack(out, 1).to(torch.int32)
 
 
+def value_layout(env: Env) -> Dict[str, int]:
+    """The first index of each group of a seat's values (``seat_values_plain``;
+    ``csrc/hanabi.cu``'s ``seat_values`` writes at these starts, which
+    ``_cfg`` passes in this order) and their number (``"count"``): the
+    partner's cards, the two hand-not-full flags, deck size, fireworks, info,
+    life, discards, the last move's relative actor, kind, relative target,
+    revealed colour and rank, reveal bits, card index and card, the scored
+    and info-token flags, the knowledge blocks' plausible bits, known colours
+    and known ranks, the own cards and the legal moves."""
+    C, R, P, H = env.colors, env.ranks, env.players, env.hand
+    sizes = (("pc", H), ("nf", 2), ("ds", 1), ("fw", C), ("info", 1), ("life", 1),
+             ("disc", C * R), ("ra", 1), ("lmm", 1), ("rt", 1), ("rc", 1), ("rr", 1),
+             ("rb", H), ("ci", 1), ("cid", 1), ("sc", 1), ("it", 1), ("pb", P * H),
+             ("kc", P * H), ("kr", P * H), ("oc", H), ("lg", env.num_actions))
+    out, i = {}, 0
+    for name, n in sizes:
+        out[name] = i
+        i += n
+    out["count"] = i
+    return out
+
+
+def encode_table(env: Env) -> torch.Tensor:
+    """K3's section table: for each byte of a seat's obs, own hand and mask,
+    in that order (``[OBS + H*C*R + A]`` int32), the value it reads and the
+    range it tests, ``idx | lo << 8 | span << 16``: the byte is 1 where
+    ``0 <= value - lo <= span``.  A one-hot byte tests ``value == k`` (lo k,
+    span 0), a thermometer byte ``value > i`` (lo i + 1, span 127); the
+    values are clamped to [-1, 64] (``seat_values_plain``), which keeps every
+    test of a constant in 0..63.  Sections in ``envs/hanabi.py::_encode_seat``'s
+    order."""
+    C, R, P, H = env.colors, env.ranks, env.players, env.hand
+    CR, v = C * R, value_layout(env)
+    ent = []
+
+    def eq(name, k, i=0):
+        ent.append((v[name] + i, k, 0))
+
+    def gt(name, k, i=0):
+        ent.append((v[name] + i, k + 1, 127))
+
+    for h in range(H):
+        for b in range(CR):
+            eq("pc", b, h)
+    eq("nf", 1, 0)
+    eq("nf", 1, 1)
+    for i in range(env.max_deck_bits):
+        gt("ds", i)
+    for k in range(C):
+        for r in range(R):
+            eq("fw", r + 1, k)
+    for i in range(env.max_info):
+        gt("info", i)
+    for i in range(env.max_life):
+        gt("life", i)
+    copies = copies_of_ranks(env)
+    for k in range(CR):
+        for i in range(copies[k % R]):
+            gt("disc", i, k)
+    for p in range(P):
+        eq("ra", p)
+    for m in (M_PLAY, M_DISCARD, M_REVEAL_C, M_REVEAL_R):
+        eq("lmm", m)
+    for p in range(P):
+        eq("rt", p)
+    for k in range(C):
+        eq("rc", k)
+    for r in range(R):
+        eq("rr", r)
+    for h in range(H):
+        eq("rb", 1, h)
+    for h in range(H):
+        eq("ci", h)
+    for k in range(CR):
+        eq("cid", k)
+    eq("sc", 1)
+    eq("it", 1)
+    for off in range(P):
+        for h in range(H):
+            for _ in range(CR):
+                eq("pb", 1, off * H + h)
+            for x in range(C):
+                eq("kc", x, off * H + h)
+            for r in range(R):
+                eq("kr", r, off * H + h)
+    if len(ent) != env.obs_size:
+        raise AssertionError(f"the table covers {len(ent)} obs bytes, the config {env.obs_size}")
+    for h in range(H):
+        for b in range(CR):
+            eq("oc", b, h)
+    for k in range(env.num_actions):
+        eq("lg", 1, k)
+    if v["count"] > 255 or max(lo for _, lo, _ in ent) > 64:
+        raise ValueError("the config's values or constants exceed the section table's bytes")
+    return torch.tensor([i | lo << 8 | span << 16 for i, lo, span in ent], dtype=torch.int32)
+
+
+def seat_values_plain(env: Env, ts: TState) -> torch.Tensor:
+    """Every seat's values (``value_layout``) from the state ``ts.st``, ``[N,
+    P, count]`` int8, each clamped to [-1, 64], as K3 computes them for a
+    refreshed seat.  Two players."""
+    C, R, P, H = env.colors, env.ranks, env.players, env.hand
+    N, off = ts.num_envs, row_offsets(env)
+    st = ts.st
+    rows = lambda name, n: st[off[name]:off[name] + n]
+    sc = {f: st[off["scal"] + i] for i, f in enumerate(SCAL_FIELDS)}
+    hc, hs = rows("hc", P * H).reshape(P, H, N), rows("hs", P)
+    hp = rows("hp", P * H).reshape(P, H, N)
+    kc, kr = rows("kc", P * H).reshape(P, H, N), rows("kr", P * H).reshape(P, H, N)
+    slot = torch.arange(H, device=st.device)[:, None]
+    live = slot[None] < hs[:, None]                                        # [P, H, N]
+    neg = torch.full_like(hc[0], -1)
+    lmm, lmp, lmc, lmr = sc["lm_move"], sc["lm_player"], sc["lm_color"], sc["lm_rank"]
+    is_reveal = (lmm == M_REVEAL_C) | (lmm == M_REVEAL_R)
+    is_pd = (lmm == M_PLAY) | (lmm == M_DISCARD)
+    is_play = lmm == M_PLAY
+    legal = legal_moves_plain(env, hc.permute(2, 0, 1).contiguous(), hs.t().contiguous(),
+                              sc["info_tokens"])
+    seats = []
+    for a in range(P):
+        q = 1 - a
+        know = [(a + o) % P for o in range(P)]
+        parts = [
+            torch.where(live[q], hc[q], neg),
+            (hs[a] < H)[None], (hs[q] < H)[None], sc["deck_size"][None], rows("fw", C),
+            sc["info_tokens"][None], sc["life_tokens"][None], rows("disc", C * R),
+            # C's remainder (truncating), as the kernels compute it
+            torch.where(lmp == -1, -1, torch.fmod(a - lmp + P, P))[None], lmm[None],
+            torch.where(is_reveal, torch.fmod(a - sc["lm_target"] + P, P), -1)[None],
+            torch.where(lmm == M_REVEAL_C, lmc, -1)[None],
+            torch.where(lmm == M_REVEAL_R, lmr, -1)[None],
+            is_reveal & ((sc["lm_reveal_bits"] >> slot) & 1).bool(),
+            torch.where(is_pd, sc["lm_card_index"], -1)[None],
+            torch.where(is_pd, lmc * R + lmr, -1)[None],
+            (is_play & (sc["lm_scored"] != 0))[None], (is_play & (sc["lm_info_token"] != 0))[None],
+            torch.cat([live[k] & ((hp[k] >> o) & 1).bool() for o, k in enumerate(know)]),
+            torch.cat([torch.where(live[k], kc[k], neg) for k in know]),
+            torch.cat([torch.where(live[k], kr[k], neg) for k in know]),
+            torch.where(live[a], hc[a], neg),
+            legal[:, a].t()]
+        vals = torch.cat([x.to(torch.int32) for x in parts])                  # [count, N]
+        seats.append(vals.clamp(-1, 64).to(torch.int8).t())
+    return torch.stack(seats, 1)
+
+
+def encodes_plain(env: Env, ts: TState):
+    """Every seat's obs, own hand and mask written byte by byte from the
+    section table and the seat values, as K3 writes a refreshed seat:
+    ``(obs [N, P, OBS] int8, own [N, P, H*C*R] int8, mask [N, P, A] bool)``."""
+    tab = encode_table(env).to(torch.int64)
+    idx, lo, span = tab & 0xFF, (tab >> 8) & 0xFF, tab >> 16
+    vals = seat_values_plain(env, ts).to(torch.int64)
+    d = vals[..., idx.to(ts.st.device)] - lo.to(ts.st.device)
+    bits = (d >= 0) & (d <= span.to(ts.st.device))
+    o, w = env.obs_size, env.hand * env.bits_per_card
+    return (bits[..., :o].to(torch.int8), bits[..., o:o + w].to(torch.int8),
+            bits[..., o + w:].contiguous())
+
+
 def rollout_envelope(env: Env):
     """The values K4's carry holds exactly, per row of ``st``: ``(lo, hi)``
     int64 ``[ROWS]``, None where any int32 is held or the row is rewritten by
@@ -308,8 +475,7 @@ def rollout_envelope(env: Env):
         lo[off[name]:off[name] + n], hi[off[name]:off[name] + n] = low, high
 
     put("deck", env.max_cards, 0, C * R - 1)
-    put("disc", C * R, 0, torch.tensor([3 if r == 0 else 1 if r == R - 1 else 2
-                                        for r in range(R)] * C))
+    put("disc", C * R, 0, torch.tensor(copies_of_ranks(env) * C))
     put("fw", C, 0, R)
     for f, low, high in (("deck_size", 0, env.max_deck_bits), ("info_tokens", 0, env.max_info + C),
                          ("life_tokens", 0, env.max_life), ("cur_player", 0, P - 1),
@@ -356,7 +522,9 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.hk_scratch_ints.argtypes = [i]
         lib.hk_scratch_ints.restype = i
-        lib.hk_step.argtypes = [p, i] + [p] * 14 + [i, i, p]
+        lib.hk_step_scratch_ints.argtypes = [i]
+        lib.hk_step_scratch_ints.restype = i
+        lib.hk_step.argtypes = [p, i] + [p] * 15 + [i, i, p]
         lib.hk_step.restype = i
         lib.hk_rollout.argtypes = [p, i] + [p] * 13 + [i, i, i, p]
         lib.hk_rollout.restype = i
@@ -372,7 +540,8 @@ def _lib() -> ctypes.CDLL:
 
 def _cfg(env: Env):
     """What the kernels read (``csrc/hanabi.cu``'s ``Cfg``, in its order):
-    the config, its sizes and the row offsets of ``st``."""
+    the config, its sizes, the row offsets of ``st`` and the first index of
+    each group of a seat's values (``value_layout``, with the count last)."""
     if not fused_supported(env):
         raise ValueError("the hanabi kernels support 2-player configs")
     if env.colors * env.ranks > 32 or env.num_actions > 32:
@@ -382,8 +551,26 @@ def _cfg(env: Env):
             env.cards_per_color, env.max_cards, env.max_deck_bits, env.obs_size,
             env.hand * env.bits_per_card, env.num_actions,
             *(off[k] for k in ("deck", "disc", "fw", "scal", "hc", "hp", "hs", "kc", "kr",
-                               "rows")))
+                               "rows")),
+            *value_layout(env).values())
     return (ctypes.c_int * len(vals))(*vals), len(vals)
+
+
+def _config_key(env: Env) -> tuple:
+    return (env.colors, env.ranks, env.max_info, env.max_life, env.players)
+
+
+# the section table on each device, per config
+_DEVICE_TABLES: Dict[tuple, Dict[torch.device, torch.Tensor]] = {}
+
+
+def _device_table(env: Env, dev: torch.device) -> torch.Tensor:
+    """``encode_table(env)`` on ``dev``, which K3 reads; copied once."""
+    per_dev = _DEVICE_TABLES.setdefault(_config_key(env), {})
+    t = per_dev.get(dev)
+    if t is None:
+        t = per_dev[dev] = encode_table(env).to(dev)
+    return t
 
 
 def _check_state(env: Env, ts: TState, counter: torch.Tensor) -> int:
@@ -419,12 +606,13 @@ def _fused_step_cuda(env: Env, ts: TState, counter: torch.Tensor, actions: torch
     rew = torch.empty(N, dtype=torch.int32, device=dev)
     done = torch.empty(N, dtype=torch.bool, device=dev)
     cnt = torch.empty_like(counter)
-    scratch = torch.empty(lib.hk_scratch_ints(N), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.hk_step_scratch_ints(N), dtype=torch.int32, device=dev)
     rc = lib.hk_step(
         *cfg, ts.st.data_ptr(), ts.obs.data_ptr(), ts.own.data_ptr(), ts.mask.data_ptr(),
-        actions.data_ptr(), counter.data_ptr(), out.st.data_ptr(), out.obs.data_ptr(),
-        out.own.data_ptr(), out.mask.data_ptr(), rew.data_ptr(), done.data_ptr(),
-        cnt.data_ptr(), scratch.data_ptr(), N, dev.index or 0, _stream(dev))
+        actions.data_ptr(), counter.data_ptr(), _device_table(env, dev).data_ptr(),
+        out.st.data_ptr(), out.obs.data_ptr(), out.own.data_ptr(), out.mask.data_ptr(),
+        rew.data_ptr(), done.data_ptr(), cnt.data_ptr(), scratch.data_ptr(), N, dev.index or 0,
+        _stream(dev))
     _raise_on(rc, "hk_step_kernel")
     LAUNCHES["fused_step"] += 1
     return out, rew, done, cnt

@@ -209,6 +209,14 @@ def test_wrappers_check_their_inputs():
         tcp.fused_rollout(ts, cnt, tcp.init_action_rng(n, device=CPU), 0)
 
 
+def test_rollout_kernel_is_chosen_on_the_card():
+    """K6's two kernels (carry in shared memory, or in device memory) are
+    chosen by N in ``cp_rollout`` on the card, which ``rollout_kernel``
+    asks; the CPU has no such choice, and asking for it there is refused."""
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.rollout_kernel(1024, "cpu")
+
+
 def test_collector_matches_batched_step():
     """The collector's StepOutput equals the plain batched_step's, and its
     pack/unpack round-trips the BatchState (as tests/test_fused_collect.py

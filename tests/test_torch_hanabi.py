@@ -308,6 +308,88 @@ def test_seat_sums_plain_equal_the_encodes_byte_sums(config):
     assert min(seen.values()) > 0, seen
 
 
+def _jax_encodes(env_j):
+    """JAX's encodes of every seat of a batch (``_encode_seat``, ``_mask_seat``)
+    of the port's plain state ``s``: (obs [N, P, OBS], own [N, P, H*C*R],
+    mask [N, P, A]) as numpy arrays."""
+    seats = jnp.arange(env_j.players)
+
+    def one(s1):
+        obs, own = jax.vmap(lambda a: env_j._encode_seat(s1, a))(seats)
+        return obs, own, jax.vmap(lambda a: env_j._mask_seat(s1, a))(seats)
+
+    run = jax.jit(jax.vmap(one))
+
+    def encodes(s):
+        fields = {}
+        for f in jh.State.__dataclass_fields__:
+            x = getattr(s, f).numpy()
+            fields[f] = jnp.asarray(x.astype(np.uint32) if f in ("hand_plausible", "rng_v") else x)
+        return tuple(np.asarray(x) for x in run(jh.State(**fields)))
+
+    return encodes
+
+
+@pytest.mark.parametrize("config", ["full", "small", "very_small"])
+def test_encode_table_writes_the_jax_encodes(config):
+    """K3's section table and seat values (``encode_table``,
+    ``seat_values_plain``; the kernel writes a refreshed seat's bytes from
+    them) give every seat's obs, own-hand and mask bytes exactly as JAX's
+    ``_encode_seat`` and ``_mask_seat`` do, on the states of 150 plain
+    legal-move steps through empty-deck shifts, reveals and fresh deals (half
+    the envs never play while another move is legal)."""
+    env, env_j = th.Env(**th.CONFIGS[config]), jh.Env(**jh.CONFIGS[config])
+    encodes = _jax_encodes(env_j)
+    n = 64
+    ts, cnt = tk.init_packed(env, n, device=CPU)
+    w = tk.init_action_rng(n, seed=2, device=CPU)[0]
+    scal = tk.row_offsets(env)["scal"]
+    ds, lmm = scal + tk.SCAL_FIELDS.index("deck_size"), scal + tk.SCAL_FIELDS.index("lm_move")
+    seen = dict(shifts=0, reveals=0, deals=0)
+    plays = torch.zeros(env.num_actions, dtype=torch.bool)
+    plays[env.hand:2 * env.hand] = True
+    careful = torch.arange(n)[:, None] >= n // 2
+    for t in range(150):
+        mask = tk.active_mask(env, ts)
+        no_play = mask & ~plays
+        mask = torch.where(careful & no_play.any(1, keepdim=True), no_play, mask)
+        w, uid = tk.action_from_mask(w, mask)
+        empty = ts.st[ds] == 0
+        ts, _, done, cnt = tk.fused_step_plain(env, ts, cnt, uid[:, None].expand(n, 2).contiguous())
+        obs, own, msk = tk.encodes_plain(env, ts)
+        j_obs, j_own, j_mask = encodes(tk.unpack_state(env, ts))
+        np.testing.assert_array_equal(obs.numpy(), j_obs.astype(np.int8), err_msg=f"t={t} obs")
+        np.testing.assert_array_equal(own.numpy(), j_own.astype(np.int8), err_msg=f"t={t} own")
+        np.testing.assert_array_equal(msk.numpy(), j_mask.astype(bool), err_msg=f"t={t} mask")
+        seen["shifts"] += int((empty & (uid < 2 * env.hand) & ~done).sum())
+        seen["reveals"] += int(((ts.st[lmm] >= th.M_REVEAL_C) & ~done).sum())
+        seen["deals"] += int(done.sum())
+    assert min(seen.values()) > 0, seen
+
+
+def test_encode_table_layout():
+    """The section table's shape: one entry per obs, own-hand and mask byte,
+    each reading a value inside ``value_layout`` (3H + 3PH + C + CR + A + 14
+    values) with a constant the clamp to [-1, 64] keeps; full has 109 values
+    and 803 entries.  The kernels' ``Cfg`` carries the layout's group
+    starts and count after the 21 ints of sizes and row offsets."""
+    for config in ("full", "small", "very_small"):
+        env = th.Env(**th.CONFIGS[config])
+        C, R, P, H, A = env.colors, env.ranks, env.players, env.hand, env.num_actions
+        count = tk.value_layout(env)["count"]
+        assert count == 3 * H + 3 * P * H + C + C * R + A + 14
+        tab = tk.encode_table(env).to(torch.int64)
+        assert tab.shape == (env.obs_size + H * env.bits_per_card + A,)
+        idx, lo, span = tab & 0xFF, (tab >> 8) & 0xFF, tab >> 16
+        assert int(idx.max()) < count and int(lo.max()) <= 64
+        assert set(span.tolist()) == {0, 127}
+        vals = tk.seat_values_plain(env, tk.init_packed(env, 3, device=CPU)[0])
+        assert vals.shape == (3, P, count) and vals.dtype == torch.int8
+        cfg, n = tk._cfg(env)
+        assert n == 44 and list(cfg)[21:] == list(tk.value_layout(env).values())
+    assert tk.value_layout(th.Env(**th.CONFIGS["full"]))["count"] == 109
+
+
 def test_rollout_envelope_names_the_rows_outside_it():
     """The rows K4's carry holds in bytes are checked against their ranges;
     a state outside is named row by row (the CUDA wrapper refuses it), and

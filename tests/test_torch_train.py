@@ -99,9 +99,9 @@ def test_plain_gae_matches_jax():
     _close(t_ret, j_ret)
 
 
-def _trainers(value_loss="clipped_mse", num_envs=4, T=8, epochs=2, nmb=2):
+def _trainers(value_loss="clipped_mse", num_envs=4, T=8, epochs=2, nmb=2, use_bf16=False):
     common = dict(num_steps=T, hidden=32, num_layers=1, update_epochs=epochs,
-                  num_minibatches=nmb, lr=1e-3, value_loss=value_loss)
+                  num_minibatches=nmb, lr=1e-3, value_loss=value_loss, use_bf16=use_bf16)
     j_env = j_oc.make("cramped_room", horizon=8)
     t_env = t_oc.make("cramped_room", horizon=8)
     jt = j_selfplay.SelfPlayPPO(
@@ -195,6 +195,59 @@ def test_one_update_matches_jax_when_minibatches_do_not_divide_steps():
     chunks, _ = tt._advantage(t_tr, t_out)
     assert chunks["obs"].shape[:2] == (4, T * N * P // 4)
     assert_update_matches_jax(jt, tt, j_tr, j_out)
+
+
+def test_one_update_matches_jax_in_bf16():
+    """``use_bf16`` (bfloat16 towers, float32 parameters, heads' outputs and
+    optimizer) against JAX's, from the same parameters and injected actions:
+    the rollout's obs, actions and rewards equal and its log-probs and values
+    within float32 tolerance (the forward rounds to bf16 at the same
+    places); one update's losses within rtol 5e-3, and every parameter delta
+    within 1e-4 (a tenth of lr), with at most 1 in 1,000 beyond 1e-5.  The
+    backward passes round the bf16 products' gradients in different orders;
+    bf16 keeps about 3 significant digits, and Adam scales a gradient
+    element near zero up to lr, so a few deltas move by a few percent of lr
+    (4.4e-5 at most here)."""
+    jt, tt = _trainers(use_bf16=True)
+    T, N, P = 8, 4, 2
+    rs = np.random.RandomState(4)
+    acts = rs.choice(6, size=(T, N, P), p=[.15, .15, .15, .15, .05, .35]).astype(np.int32)
+    _, j_out, j_tr = jax_rollout_injected(jt, acts)
+    _, _, t_tr = tt._rollout(torch.from_numpy(acts))
+    for k in ("obs", "action", "reward", "done"):
+        np.testing.assert_array_equal(t_tr[k].numpy(), np.asarray(j_tr[k]), err_msg=k)
+    _close(t_tr["logp"], j_tr["logp"])
+    _close(t_tr["value"], j_tr["value"])
+
+    params0 = jt.state["params"]
+    chunks, _ = jt._advantage(params0, j_tr, j_out)
+    params1, _, auxes = jt._update(params0, jt.state["opt_state"], chunks)
+    t_tr = {k: torch.from_numpy(np.array(j_tr[k]))
+            for k in ("obs", "action", "logp", "value", "reward", "done")}
+    t_out = StepOutput(**{f: torch.from_numpy(np.array(getattr(j_out, f)))
+                          for f in ("obs", "state_obs", "action_mask", "active",
+                                    "reward", "done")})
+    before = {k: v.detach().clone() for k, v in tt.net.state_dict().items()}
+    t_chunks, _ = tt._advantage(t_tr, t_out)
+    _close(t_chunks["advantages"], chunks[5])
+    t_aux = tt._update(t_chunks)
+    for name, t_v, j_v in zip(("pg_loss", "v_loss", "entropy", "approx_kl"), t_aux, auxes):
+        np.testing.assert_allclose(float(t_v), float(j_v[-1]), rtol=5e-3, atol=1e-7,
+                                   err_msg=name)
+    j0, j1 = _np_params(params0)["params"], _np_params(params1)["params"]
+    after = tt.net.state_dict()
+    diffs = []
+    for tower in ("actor", "critic"):
+        for i in range(len(tt.net.actor.layers)):
+            for leaf, key in (("kernel", "weight"), ("bias", "bias")):
+                j_delta = j1[tower][f"Dense_{i}"][leaf] - j0[tower][f"Dense_{i}"][leaf]
+                tk = f"{tower}.layers.{i}.{key}"
+                t_delta = (after[tk] - before[tk]).numpy()
+                if leaf == "kernel":
+                    t_delta = t_delta.T
+                np.testing.assert_allclose(t_delta, j_delta, rtol=0, atol=1e-4, err_msg=tk)
+                diffs.append(np.abs(t_delta - j_delta).ravel())
+    assert (np.concatenate(diffs) > 1e-5).mean() <= 1e-3
 
 
 def assert_update_matches_jax(jt, tt, j_tr, j_out, loss_atol=1e-7, loss_abs=None):
