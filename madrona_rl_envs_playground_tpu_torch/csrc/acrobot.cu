@@ -1,33 +1,48 @@
 // Acrobot step kernels for Hopper (sm_90a), bound through a plain C
 // interface and loaded with ctypes (ops/acrobot.py).
 //
-// K9 `ac_step_kernel` + `ac_reset_kernel` replace the per-step Pallas kernel
+// K9 `ac_step_kernel` replaces the per-step Pallas kernel
 //   madrona_rl_envs_playground_tpu/ops/acrobot_pallas.py::_build_kernel
 //   (body _make_step, launched by fused_step): one RK4 step of the acrobot
 //   dynamics, the angle wrap to [-pi, pi) and the velocity clamps, the
 //   height or 501-step termination, the world-order episode index of every
-//   world that resets and its TEA+LCG reset draw (4 uniforms).  One
-//   fused_step is these two launches, as csrc/cartpole.cu's K5: the first
-//   steps every world and writes each block's count of done worlds; the
-//   second ranks the done worlds (csrc/episode_scan.cuh) and draws their
-//   fresh episodes.
-// K10 `ac_rollout_kernel` replaces the persistent rollout Pallas kernel
-//   ops/acrobot_pallas.py::_build_rollout_kernel (fused_rollout): T steps in
-//   one cooperative launch, actions from a per-env LCG (three torques:
-//   action = ((w >> 8) & 0xFFFFFF) * 3 >> 24 of the advanced word), a
-//   per-env done count and the checksum chk + t1 + t2 + w1 + w2 + done after
-//   every step (float32, in that order, on the state after the reset).
-//   Every step ranks its resets over the whole batch with one grid-wide
-//   sync, as K6 does, so episodes are allocated per step in whole-batch
-//   world order: K10 equals T applications of K9 and JAX's fused_rollout
-//   with one block (block == N), not JAX's block-sequential order at more
-//   than one block.
+//   world that resets and its TEA+LCG reset draw (4 uniforms).  One kernel
+//   launch: a block steps a tile of worlds, ranks its done worlds over the
+//   batch by a decoupled look-back over the tiles in the order the blocks
+//   start (csrc/episode_scan.cuh), and each warp draws its done worlds'
+//   fresh episodes.  No memset and no device query per call: the tiles fit
+//   the resident grid, whose size is asked once per device, and the scan
+//   words are left zero for the next launch.
+// K10 `ac_rollout_onchip_kernel` / `ac_rollout_kernel` replace the
+//   persistent rollout Pallas kernel ops/acrobot_pallas.py::
+//   _build_rollout_kernel (fused_rollout): T steps in one cooperative
+//   launch, actions from a per-env LCG (three torques: action = ((w >> 8) &
+//   0xFFFFFF) * 3 >> 24 of the advanced word), a per-env done count and the
+//   checksum chk + t1 + t2 + w1 + w2 + done after every step (float32, in
+//   that order, on the state after the reset).  K6's design
+//   (csrc/cartpole.cu, episode_scan.cuh's rollout section): the launcher
+//   picks the kernel by N; where every block of the resident grid holds its
+//   worlds' carry in shared memory (up to 8,192 worlds an SM), the on-chip
+//   kernel, else the carry lies in the output arrays in device memory.  Each
+//   step ranks its resets over the whole batch in one pass with one
+//   grid-wide sync, so episodes are allocated per step in whole-batch world
+//   order: K10 equals T applications of K9 and JAX's fused_rollout with one
+//   block (block == N), not JAX's block-sequential order at more than one
+//   block.
 //
 // Layout.  The state is env-major [N, 4] f32 (theta1, theta2, omega1,
 // omega2): one 16-byte load and store per world, and the same memory is the
 // [N, 1, 4] obs the policy reads.  The step counts and the episode LCG
-// words are int32 [N].  Block b owns a contiguous run of slots * THREADS
-// worlds (episode_scan.cuh's `world`).
+// words are int32 [N].
+//
+// K10's carry is 28 B a world: the state, the action word, the checksum,
+// and one word that packs the done count (bits 9-31) over the step count
+// (bits 0-8).  A live world's step count is at most 500, so 9 bits hold it;
+// a world that enters the launch with a count outside [0, 510] keeps the
+// value WIDE in those bits and its exact count in the `steps` output in
+// device memory until it resets, so any int32 count is stepped exactly.
+// The done count is at most T, hence T <= MAX_T.  The episode LCG word
+// changes only at a reset and is written straight to `rng`.
 //
 // Exactness.  Every operation is a __fadd_rn/__fsub_rn/__fmul_rn/__fdiv_rn,
 // one IEEE rounding each, in the operation order of JAX's
@@ -35,28 +50,30 @@
 // and the divisions are exact quotients, as PyTorch's division by a tensor
 // is.  sinf, cosf and fmodf are the precise CUDA functions under nvcc's
 // default flags, as in PyTorch's torch.sin/torch.cos/torch.remainder
-// kernels.  The constants are the float32 values JAX computes, written as
+// kernels, and sincosf gives both of one argument with their bits.  The constants are the float32 values JAX computes, written as
 // hex floats; JAX folds some Python constants in double first
-// (0.25 + 1.0 is 1.25, 2.0 * 0.5 * w2 is w2).
+// (0.25 + 1.0 is 1.25, 2.0 * 0.5 * w2 is w2).  The step count adds one in
+// int32 with wrap-around, as torch and JAX do.
 //
-// What bounds them on an H100.  K9 moves 53 B per world-step (state 16 B,
-// step count, LCG word and action read; the same and done written) and does
-// 233 operations counting each sin/cos as one (RK4: four evaluations of the
-// dynamics, each with four sin/cos), about 4.4 per byte against the card's
-// 20 per byte, so bytes bound it.  K10 keeps 36 B of carry per world
-// (state, step count, two LCG words, done count, checksum), 38 MB at 1M
-// worlds, which the 50 MB L2 holds across the grid-wide sync of each step,
-// so its operations bound it.
+// What bounds them on an H100.  A step is about 679 instructions a world
+// (chip_smoke.py's AC_STEP_OPS: four evaluations of the dynamics with 18
+// sin/cos and 16 divisions), so operations bound both: K9 moves 53 B per
+// world-step against that (about 13 instructions a byte, the card's
+// balance is 10), and K10 touches device memory only at its start and end
+// and to store a reset's episode word, with its carry on chip at up to
+// 8,192 worlds an SM.  The grid-wide sync and the ranking are a fixed cost
+// a step.
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <map>
+#include <mutex>
 
 #include "episode_scan.cuh"
 
 namespace cg = cooperative_groups;
 using episode::THREADS;
-using episode::world;
 
 namespace {
 
@@ -77,6 +94,7 @@ constexpr float SIXTH_DT = 0x1.111112p-5f;       // f32(0.2) / 6, rounded
 constexpr float LO = -0x1.99999ap-4f;            // -0.1
 constexpr float RANGE = 0x1.99999ap-3f;          // 0.1 - (-0.1)
 constexpr int MAX_STEPS = 500;
+constexpr int ERR_TOO_MANY_STEPS = -3;  // returned by ac_rollout
 
 struct Arm {
   float t1, t2, w1, w2;
@@ -92,9 +110,12 @@ __device__ __forceinline__ void store(float4* st, int n, const Arm& s) {
 }
 
 // d/dt of (t1, t2, w1, w2): (w1, w2, a1, a2).  JAX envs/acrobot._ds_dt.
+// sincosf gives both of t2 in fewer instructions than the sinf/cosf pair
+// nvcc builds (about 60 fewer a step), and equals them on every float
+// (chip_smoke.py's phase_sincos_exact).
 __device__ __forceinline__ Arm ds_dt(const Arm& s, float torque) {
-  const float c2 = cosf(s.t2);
-  const float s2 = sinf(s.t2);
+  float s2, c2;
+  sincosf(s.t2, &s2, &c2);
   const float d1 = __fadd_rn(__fadd_rn(QUARTER, __fadd_rn(FIVE_QUARTERS, c2)), 2.0f);
   const float d2 = __fadd_rn(__fadd_rn(QUARTER, __fmul_rn(HALF, c2)), 1.0f);
   const float phi2 = __fmul_rn(HALF_G, cosf(__fsub_rn(__fadd_rn(s.t1, s.t2), HALF_PI)));
@@ -132,10 +153,9 @@ __device__ __forceinline__ float wrap(float x) {
   return __fsub_rn(m, PI);
 }
 
-// One RK4 step with torque a - 1, the wrap and clamps; advances `steps` and
-// returns done.  Semantics: envs/acrobot.py (both packages).
-__device__ __forceinline__ bool transition(Arm& s, int& steps, int a) {
-  const float torque = a == 0 ? -1.0f : (a == 1 ? 0.0f : 1.0f);
+// One RK4 step with `torque`, the wrap and clamps; returns whether the arm
+// reached the height.  Semantics: envs/acrobot.py (both packages).
+__device__ __forceinline__ bool transition(Arm& s, float torque) {
   const Arm k1 = ds_dt(s, torque);
   const Arm k2 = ds_dt(axpy(s, k1, HALF_DT), torque);
   const Arm k3 = ds_dt(axpy(s, k2, HALF_DT), torque);
@@ -147,9 +167,11 @@ __device__ __forceinline__ bool transition(Arm& s, int& steps, int a) {
   n.w1 = fminf(fmaxf(n.w1, -MAX_VEL_1), MAX_VEL_1);
   n.w2 = fminf(fmaxf(n.w2, -MAX_VEL_2), MAX_VEL_2);
   s = n;
-  steps += 1;
-  return __fsub_rn(-cosf(n.t1), cosf(__fadd_rn(n.t2, n.t1))) > 1.0f || steps > MAX_STEPS;
+  return __fsub_rn(-cosf(n.t1), cosf(__fadd_rn(n.t2, n.t1))) > 1.0f;
 }
+
+// steps + 1 in int32, wrapping as torch and JAX do
+__device__ __forceinline__ int next_steps(int steps) { return (int)((uint32_t)steps + 1u); }
 
 // The fresh episode `idx`: TEA seed, then 4 LCG draws in [-0.1, 0.1).
 __device__ __forceinline__ Arm fresh(uint32_t idx, uint32_t* word) {
@@ -173,138 +195,289 @@ __device__ __forceinline__ float checksum(float chk, const Arm& s, bool done) {
 
 // ---- K9 ---------------------------------------------------------------------
 
+// K9's scan words (64-bit): the ticket, the count of tiles past their
+// look-back, then one look-back word per tile.  They must be zero at the
+// first launch; the last tile to pass its look-back (when no tile reads a
+// flag any more) zeroes them for the next, so a step is one kernel and no
+// memset.
+constexpr int SCAN_HEAD = 2;
+
+// A tile is `per` consecutive worlds, world s * THREADS + t of it in slot s
+// of thread t.  The launcher spreads the worlds evenly over the resident
+// grid, in whole 4-warp rows (one warp for each scheduler of an SM), up to
+// MAX_ROLLOUT_SLOTS slots, and the tile's resets are ranked and drawn as
+// K10's are (a ballot per (slot, warp), scan_counts, nth_done), the
+// look-back taking the place of the grid-wide sync.
 __global__ void __launch_bounds__(THREADS)
 ac_step_kernel(const float4* __restrict__ st_in, const int32_t* __restrict__ steps_in,
-               const int32_t* __restrict__ act, float4* __restrict__ st_out,
-               int32_t* __restrict__ steps_out, bool* __restrict__ done_out,
-               int* __restrict__ totals, int N, int slots) {
-  int count = 0;
+               const int32_t* __restrict__ rng_in, const int32_t* __restrict__ act,
+               const int64_t* __restrict__ cnt_in, float4* __restrict__ st_out,
+               int32_t* __restrict__ steps_out, int32_t* __restrict__ rng_out,
+               bool* __restrict__ done_out, int64_t* __restrict__ cnt_out,
+               unsigned long long* __restrict__ scan, int N, int per) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ int tile_s;
+  __shared__ bool last_s;
+  __shared__ uint32_t first_s;  // the tile's first episode index
+  __shared__ int cnt[episode::RANK_COUNTS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the tile in the order the blocks start, so that every tile the
+  // look-back waits on belongs to a running block
+  if (tid == 0) tile_s = (int)episode::take_ticket(scan);
+  __syncthreads();
+  const int tile = tile_s, first = tile * per, slots = (per + THREADS - 1) / THREADS;
+  const int last = min(per, N - first);  // worlds in this tile
+  // the step, each slot's inputs loaded during the slot before; live worlds
+  // are final
+  uint32_t dmask = 0u;
+  float4 nx = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int nx_steps = 0, nx_act = 0;
+  if (tid < last) {
+    nx = st_in[first + tid];
+    nx_steps = steps_in[first + tid];
+    nx_act = act[first + tid];
+  }
   for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
+    const int i = s * THREADS + tid, n = first + i;
+    Arm p{nx.x, nx.y, nx.z, nx.w};
+    const int steps = next_steps(nx_steps), a = nx_act;
+    if (i + THREADS < last) {
+      nx = st_in[n + THREADS];
+      nx_steps = steps_in[n + THREADS];
+      nx_act = act[n + THREADS];
+    }
     bool done = false;
-    if (n < N) {
-      Arm p = load(st_in, n);
-      int steps = steps_in[n];
-      done = transition(p, steps, act[n]);
-      store(st_out, n, p);  // the reset kernel overwrites the done worlds
-      steps_out[n] = done ? 0 : steps;
+    if (i < last) {
+      done = transition(p, a == 0 ? -1.0f : (a == 1 ? 0.0f : 1.0f)) || steps > MAX_STEPS;
+      if (!done) {
+        store(st_out, n, p);
+        steps_out[n] = steps;
+        rng_out[n] = rng_in[n];
+      }
       done_out[n] = done;
     }
-    count += __syncthreads_count(done);
+    const unsigned b = __ballot_sync(episode::FULL_MASK, done);
+    if (lane == 0) cnt[s * WARPS + warp] = __popc(b);
+    dmask |= (uint32_t)done << s;
   }
-  if (threadIdx.x == 0) totals[blockIdx.x] = count;
+  __syncthreads();
+  if (warp == 0) {
+    // the counts scanned in world order, the tile's offset over the batch
+    const uint32_t total = (uint32_t)episode::scan_counts(cnt, slots * WARPS);
+    const uint32_t before = episode::look_back(scan + SCAN_HEAD, tile, total);
+    if (lane == 0) {
+      first_s = (uint32_t)cnt_in[0] + before;
+      // the last tile's next index is the counter after the step
+      if (tile == (int)gridDim.x - 1) cnt_out[0] = (int64_t)(first_s + total);
+      __threadfence();  // this tile's reads of the flags come first
+      last_s = atomicAdd(scan + 1, 1ull) == gridDim.x - 1u;
+    }
+  }
+  __syncthreads();
+  // the warp's done worlds drawn one a lane, in (slot, lane) order
+  const uint32_t next = first_s;
+  const int resets = episode::warp_resets(dmask, slots);
+  for (int j0 = 0; j0 < resets; j0 += 32) {
+    uint32_t rank = 0u;
+    const int i = episode::nth_done(dmask, slots, cnt, j0 + lane, &rank);
+    if (i >= 0) {
+      uint32_t w;
+      const int n = first + i;
+      store(st_out, n, fresh(next + rank, &w));
+      rng_out[n] = (int32_t)w;
+      steps_out[n] = 0;
+    }
+  }
+  if (last_s) {
+    for (int i = tid; i < SCAN_HEAD + (int)gridDim.x; i += THREADS) scan[i] = 0ull;
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-ac_reset_kernel(const bool* __restrict__ done_in, const int32_t* __restrict__ rng_in,
-                const int64_t* __restrict__ cnt_in, const int* __restrict__ totals,
-                float4* __restrict__ st_out, int32_t* __restrict__ rng_out,
-                int64_t* __restrict__ cnt_out, int N, int slots) {
-  __shared__ int smem[episode::SCAN_SMEM_INTS];
-  uint32_t before, unused;
-  episode::block_offsets(totals, blockIdx.x, blockIdx.x, smem, &before, &unused);
-  uint32_t next = (uint32_t)cnt_in[0] + before;  // index of the next reset
-  for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
-    const bool done = n < N && done_in[n];
-    int total;
-    const int rank = episode::block_rank(done, smem, &total);
-    if (done) {
-      uint32_t w;
-      store(st_out, n, fresh(next + (uint32_t)rank, &w));
-      rng_out[n] = (int32_t)w;
-    } else if (n < N) {
-      rng_out[n] = rng_in[n];
+// K9's tiles for N worlds and the worlds a tile: the resident grid (asked
+// once per device), each tile a whole number of 128-world rows and at most
+// MAX_ROLLOUT_SLOTS slots; at most one tile a THREADS worlds.
+cudaError_t step_plan(int N, int device, int* tiles, int* per) {
+  static std::mutex mu;
+  static std::map<int, int> resident;
+  int max_blocks;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto hit = resident.find(device);
+    if (hit == resident.end()) {
+      const cudaError_t err =
+          episode::resident_blocks((const void*)ac_step_kernel, device, &max_blocks);
+      if (err != cudaSuccess) return err;
+      resident[device] = max_blocks;
+    } else {
+      max_blocks = hit->second;
     }
-    next += (uint32_t)total;
   }
-  // the last block's next index is the counter after the step
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) cnt_out[0] = (int64_t)next;
+  constexpr int ROW = 128;
+  const int want = min(max_blocks, (N + THREADS - 1) / THREADS);
+  const int rows = ((N + want - 1) / want + ROW - 1) / ROW;
+  *per = min(rows * ROW, episode::MAX_ROLLOUT_SLOTS * THREADS);
+  *tiles = (N + *per - 1) / *per;
+  return cudaSuccess;
 }
 
 // ---- K10 --------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-ac_rollout_kernel(const float4* __restrict__ st_in, const int32_t* __restrict__ steps_in,
-                  const int32_t* __restrict__ rng_in, const int32_t* __restrict__ arng_in,
-                  const int64_t* __restrict__ cnt_in, float4* __restrict__ st,
-                  int32_t* __restrict__ steps, int32_t* __restrict__ rng,
-                  int32_t* __restrict__ arng, int32_t* __restrict__ dcnt,
-                  float* __restrict__ chk, int64_t* __restrict__ cnt_out,
-                  int* __restrict__ totals, int N, int T, int slots) {
-  __shared__ int smem[episode::SCAN_SMEM_INTS];
+constexpr uint32_t STEP_BITS = 9;
+constexpr uint32_t WIDE = (1u << STEP_BITS) - 1u;  // the step count lies in `steps`
+constexpr int MAX_T = (int)(0xFFFFFFFFu >> STEP_BITS);  // done counts that fit
+constexpr int CARRY_BYTES = 16 + 4 + 4 + 4;  // state, action word, checksum, packed counts
+
+#define AC_ROLLOUT_PARAMS                                                                   \
+  const float4 *__restrict__ st_in, const int32_t *__restrict__ steps_in,                   \
+      const int32_t *__restrict__ rng_in, const int32_t *__restrict__ arng_in,             \
+      const int64_t *__restrict__ cnt_in, float4 *__restrict__ st,                         \
+      int32_t *__restrict__ steps, int32_t *__restrict__ rng, int32_t *__restrict__ arng,  \
+      int32_t *__restrict__ dcnt, float *__restrict__ chk, int64_t *__restrict__ cnt_out,  \
+      int *__restrict__ totals, int N, int T, int slots
+#define AC_ROLLOUT_ARGS                                                                    \
+  st_in, steps_in, rng_in, arng_in, cnt_in, st, steps, rng, arng, dcnt, chk, cnt_out, totals, \
+      N, T, slots
+
+template <bool ONCHIP>
+__device__ __forceinline__ void rollout(AC_ROLLOUT_PARAMS) {
+  __shared__ int counts[2][episode::RANK_COUNTS];  // by the step's parity
+  __shared__ uint32_t offsets[2];
+  extern __shared__ __align__(16) unsigned char carry_smem[];
   cg::grid_group grid = cg::this_grid();
-  const int G = gridDim.x;
-  // the outputs are the working state: each world is only ever touched by
-  // the thread that owns it
+  const int G = gridDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int block = blockDim.x, warps = block >> 5;
+  const int cap = slots * block, first = blockIdx.x * cap;  // world first + i is slot i / block
+  // the carry of world first + i at index i: in shared memory, or the
+  // outputs themselves (the packed counts in `dcnt`); each world is only
+  // ever touched by its thread, or at a reset by a lane of its warp
+  float4* arm = ONCHIP ? reinterpret_cast<float4*>(carry_smem) : st + first;
+  uint32_t* aw = ONCHIP ? reinterpret_cast<uint32_t*>(arm + cap)
+                        : reinterpret_cast<uint32_t*>(arng) + first;
+  float* ck = ONCHIP ? reinterpret_cast<float*>(aw + cap) : chk + first;
+  uint32_t* pk = ONCHIP ? reinterpret_cast<uint32_t*>(ck + cap)
+                        : reinterpret_cast<uint32_t*>(dcnt) + first;
   for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
+    const int i = s * block + tid, n = first + i;
     if (n < N) {
-      st[n] = st_in[n];
-      steps[n] = steps_in[n];
+      arm[i] = st_in[n];
+      aw[i] = (uint32_t)arng_in[n];
+      ck[i] = 0.0f;
+      const int k = steps_in[n];
+      pk[i] = min((uint32_t)k, WIDE);
+      steps[n] = k;  // a wide world's count stays here
       rng[n] = rng_in[n];
-      arng[n] = arng_in[n];
-      dcnt[n] = 0;
-      chk[n] = 0.0f;
     }
   }
   uint32_t base = (uint32_t)cnt_in[0];
+  EPISODE_STAMPS_BEGIN
   for (int t = 0; t < T; ++t) {
+    int* cnt = counts[t & 1];
     int* step_totals = totals + (t & 1) * G;
     // phase A: action, dynamics, done; live worlds are final for this step
     uint32_t dmask = 0u;
-    int count = 0;
     for (int s = 0; s < slots; ++s) {
-      const int n = world(slots, s);
+      const int i = s * block + tid, n = first + i;
       bool done = false;
       if (n < N) {
-        const uint32_t w = episode::lcg_next((uint32_t)arng[n]);
-        arng[n] = (int32_t)w;
-        Arm p = load(st, n);
-        int k = steps[n];
-        done = transition(p, k, (int)((((w >> 8) & 0x00FFFFFFu) * 3u) >> 24));
+        const uint32_t w = episode::lcg_next(aw[i]);
+        aw[i] = w;
+        const int a = (int)((((w >> 8) & 0x00FFFFFFu) * 3u) >> 24);
+        Arm p = load(arm, i);
+        uint32_t k = pk[i];
+        const bool wide = (k & WIDE) == WIDE;
+        const int after = wide ? next_steps(steps[n]) : (int)(k & WIDE) + 1;
+        done = transition(p, (float)(a - 1)) || after > MAX_STEPS;
         if (!done) {
-          store(st, n, p);
-          steps[n] = k;
-          chk[n] = checksum(chk[n], p, false);
+          store(arm, i, p);
+          ck[i] = checksum(ck[i], p, false);
+          if (wide) steps[n] = after;
+          else k += 1u;
+        } else {
+          k = (k | WIDE) + 1u;  // one more done, and step count 0
         }
-        dcnt[n] += done;
+        pk[i] = k;
       }
+      const unsigned b = __ballot_sync(episode::FULL_MASK, done);
+      if (lane == 0) cnt[s * warps + warp] = __popc(b);
       dmask |= (uint32_t)done << s;
-      count += __syncthreads_count(done);
     }
-    if (threadIdx.x == 0) step_totals[blockIdx.x] = count;
+    EPISODE_STAMP(episode::PH_A);
+    __syncthreads();
+    EPISODE_STAMP(episode::PH_BARRIER);
+    if (warp == 0) {
+      const int total = episode::scan_counts(cnt, slots * warps);
+      if (lane == 0) step_totals[blockIdx.x] = total;
+    }
+    EPISODE_STAMP(episode::PH_SCAN);
     // the parity buffers let one sync a step suffice (see csrc/cartpole.cu)
     grid.sync();
-    // phase B: rank this step's resets over the whole batch and draw them
+    EPISODE_STAMP(episode::PH_GRID);
+    // phase B: rank this step's resets over the whole batch and draw them,
+    // the warp's done worlds one a lane in (slot, lane) order; the next
+    // step's barrier after phase A protects `offsets`
     uint32_t before, all;
-    episode::block_offsets(step_totals, blockIdx.x, G, smem, &before, &all);
-    uint32_t next = base + before;
-    for (int s = 0; s < slots; ++s) {
-      const int n = world(slots, s);
-      const bool done = (dmask >> s) & 1u;
-      int total;
-      const int rank = episode::block_rank(done, smem, &total);
-      if (done) {
+    episode::first_warp_offsets(step_totals, blockIdx.x, G, offsets, &before, &all);
+    const uint32_t next = base + before;
+    EPISODE_STAMP(episode::PH_OFFSETS);
+    const int resets = episode::warp_resets(dmask, slots);
+    for (int j0 = 0; j0 < resets; j0 += 32) {
+      uint32_t rank = 0u;
+      const int i = episode::nth_done(dmask, slots, cnt, j0 + lane, &rank);
+      if (i >= 0) {
         uint32_t w;
-        const Arm p = fresh(next + (uint32_t)rank, &w);
-        store(st, n, p);
-        steps[n] = 0;
-        rng[n] = (int32_t)w;
-        chk[n] = checksum(chk[n], p, true);
+        const Arm p = fresh(next + rank, &w);
+        store(arm, i, p);
+        rng[first + i] = (int32_t)w;
+        ck[i] = checksum(ck[i], p, true);
       }
-      next += (uint32_t)total;
     }
+    __syncwarp();  // the owners read the drawn worlds next step
     base += all;
+    EPISODE_STAMP(episode::PH_DRAWS);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) cnt_out[0] = (int64_t)base;
+  EPISODE_STAMPS_END
+  for (int s = 0; s < slots; ++s) {
+    const int i = s * block + tid, n = first + i;
+    if (n < N) {
+      const uint32_t k = pk[i];
+      if ((k & WIDE) != WIDE) steps[n] = (int32_t)(k & WIDE);
+      dcnt[n] = (int32_t)(k >> STEP_BITS);
+      if (ONCHIP) {
+        st[n] = arm[i];
+        arng[n] = (int32_t)aw[i];
+        chk[n] = ck[i];
+      }
+    }
+  }
+  if (blockIdx.x == 0 && tid == 0) cnt_out[0] = (int64_t)base;
+}
+
+__global__ void __launch_bounds__(episode::ROLLOUT_THREADS, 1)
+ac_rollout_onchip_kernel(AC_ROLLOUT_PARAMS) {
+  rollout<true>(AC_ROLLOUT_ARGS);
+}
+
+__global__ void __launch_bounds__(THREADS) ac_rollout_kernel(AC_ROLLOUT_PARAMS) {
+  rollout<false>(AC_ROLLOUT_ARGS);
+}
+
+cudaError_t rollout_shape(int N, int device, episode::Shape* sh) {
+  return episode::rollout_shape((const void*)ac_rollout_onchip_kernel,
+                                (const void*)ac_rollout_kernel, CARRY_BYTES, N, device, sh);
 }
 
 }  // namespace
 
 extern "C" {
 
-int ac_scratch_ints(int N) { return episode::scratch_ints(N); }
+// Ints of scratch a K10 launch over N worlds needs: two parities of block
+// counts, its blocks holding at least one warp of worlds.
+int ac_scratch_ints(int N) { return 2 * ((N + 31) / 32); }
+
+// Ints of K9's scan words for N worlds (SCAN_HEAD, then one a tile, at most
+// one a THREADS worlds; 64-bit each): zero before the first launch, and left
+// zero by every launch.
+int ac_step_scratch_ints(int N) { return 2 * (SCAN_HEAD + (N + THREADS - 1) / THREADS); }
 
 int ac_step(const float* st_in, const int32_t* steps_in, const int32_t* rng_in,
             const int32_t* act, const int64_t* cnt_in, float* st_out, int32_t* steps_out,
@@ -312,19 +485,13 @@ int ac_step(const float* st_in, const int32_t* steps_in, const int32_t* rng_in,
             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int max_blocks = 0, blocks = 0, slots = 0;
-  err = episode::resident_blocks((const void*)ac_step_kernel, device, &max_blocks);
+  int tiles = 0, per = 0;
+  err = step_plan(N, device, &tiles, &per);
   if (err != cudaSuccess) return (int)err;
-  episode::split(N, max_blocks, &blocks, &slots);
-  cudaStream_t s = (cudaStream_t)stream;
-  ac_step_kernel<<<blocks, THREADS, 0, s>>>(reinterpret_cast<const float4*>(st_in), steps_in,
-                                            act, reinterpret_cast<float4*>(st_out), steps_out,
-                                            done, scratch, N, slots);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ac_reset_kernel<<<blocks, THREADS, 0, s>>>(done, rng_in, cnt_in, scratch,
-                                             reinterpret_cast<float4*>(st_out), rng_out,
-                                             cnt_out, N, slots);
+  ac_step_kernel<<<tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(st_in), steps_in, rng_in, act, cnt_in,
+      reinterpret_cast<float4*>(st_out), steps_out, rng_out, done, cnt_out,
+      reinterpret_cast<unsigned long long*>(scratch), N, per);
   return (int)cudaGetLastError();
 }
 
@@ -332,25 +499,47 @@ int ac_rollout(const float* st_in, const int32_t* steps_in, const int32_t* rng_i
                const int32_t* arng_in, const int64_t* cnt_in, float* st, int32_t* steps,
                int32_t* rng, int32_t* arng, int32_t* dcnt, float* chk, int64_t* cnt_out,
                int* scratch, int N, int T, int device, void* stream) {
+  if (T > MAX_T) return ERR_TOO_MANY_STEPS;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int max_blocks = 0, blocks = 0, slots = 0;
-  err = episode::resident_blocks((const void*)ac_rollout_kernel, device, &max_blocks);
+  episode::Shape sh;
+  err = rollout_shape(N, device, &sh);
   if (err != cudaSuccess) return (int)err;
-  episode::split(N, max_blocks, &blocks, &slots);
-  if (slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
+  if (sh.slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
   const float4* st_in4 = reinterpret_cast<const float4*>(st_in);
   float4* st4 = reinterpret_cast<float4*>(st);
   void* args[] = {(void*)&st_in4, (void*)&steps_in, (void*)&rng_in, (void*)&arng_in,
                   (void*)&cnt_in, (void*)&st4,      (void*)&steps,  (void*)&rng,
                   (void*)&arng,   (void*)&dcnt,     (void*)&chk,    (void*)&cnt_out,
-                  (void*)&scratch, (void*)&N,       (void*)&T,      (void*)&slots};
-  err = cudaLaunchCooperativeKernel((const void*)ac_rollout_kernel, dim3(blocks), dim3(THREADS),
-                                    args, 0, (cudaStream_t)stream);
+                  (void*)&scratch, (void*)&N,       (void*)&T,      (void*)&sh.slots};
+  const void* kernel =
+      sh.onchip ? (const void*)ac_rollout_onchip_kernel : (const void*)ac_rollout_kernel;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(sh.blocks), dim3(sh.threads), args, sh.smem,
+                                    (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-const char* ac_error_string(int err) { return episode::error_string(err); }
+// 1 where K10 runs N worlds with their carry on chip, 0 where in device
+// memory, or a negative error.
+int ac_rollout_onchip(int N, int device) {
+  episode::Shape sh;
+  const cudaError_t err = rollout_shape(N, device, &sh);
+  return err != cudaSuccess ? -(int)err : (int)sh.onchip;
+}
+
+// The longest rollout: its done counts fit the packed carry.
+int ac_rollout_max_steps() { return MAX_T; }
+
+const char* ac_error_string(int err) {
+  if (err == ERR_TOO_MANY_STEPS) return "too many steps for the packed done counts";
+  return episode::error_string(err);
+}
+
+#ifdef EPISODE_PHASE_STAMPS
+int ac_phase_take(unsigned long long* clocks, long long* span) {
+  return episode::phase_take(clocks, span);
+}
+#endif
 
 }  // extern "C"

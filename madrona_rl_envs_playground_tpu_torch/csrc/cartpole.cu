@@ -178,56 +178,11 @@ cp_reset_kernel(const bool* __restrict__ done_in, const int32_t* __restrict__ rn
 
 // ---- K6 ---------------------------------------------------------------------
 
-// K6's two kernels run one body (rollout<ONCHIP>): with each world's carry
-// in the block's shared memory (ONCHIP, cp_rollout_onchip_kernel, blocks of
-// up to K6_THREADS sized to spread the worlds over every SM), or in the
-// output arrays in device memory (cp_rollout_kernel, blocks of THREADS).
-// Both rank a step's resets in one pass (a ballot per (slot, warp), the
-// counts in shared memory in world order, one scan by the first warp) and
-// draw them compacted: each warp hands its done worlds to its lanes in
-// order, so a warp draws about one fresh episode a lane a step, not one per
-// slot that holds a reset.
-constexpr int K6_THREADS = 1024;
-constexpr int K6_MAX_SLOTS = 8;              // 8,192 worlds a block: 224 KB of carry
-constexpr int CARRY_BYTES = 16 + 4 + 4 + 4;  // state, action word, checksum, done count
-constexpr int RANK_COUNTS = 256;             // (slot, warp) counts a step, at most
-// the shared memory of the body beside the carry
-constexpr int K6_STATIC_SMEM = sizeof(int) * (2 * RANK_COUNTS + episode::SCAN_SMEM_INTS);
-static_assert(K6_MAX_SLOTS * (K6_THREADS / 32) <= RANK_COUNTS &&
-                  episode::MAX_ROLLOUT_SLOTS * (THREADS / 32) <= RANK_COUNTS,
-              "a step's (slot, warp) counts fit the scan");
-
-// K6's phase stamps, compiled in only with -DCP_PHASE_STAMPS (a build
-// apart, by chip_smoke.py --phases): every warp sums the SM clocks
-// (clock64) it spends in each phase of its steps, and block 0 notes the
-// global timer and its SM clock at the first and the last step, which
-// gives the SM clock under load.  Phases: A (action, physics, done and the
-// ballots), the block barrier after A, the counts' scan (the first warp),
-// the grid-wide sync, the block's offset over the grid, and the draws.
-#ifdef CP_PHASE_STAMPS
-enum { PH_A, PH_BARRIER, PH_SCAN, PH_GRID, PH_OFFSETS, PH_DRAWS, PH_PHASES };
-// the phases' clocks summed over the warps, then the number of warps
-__device__ unsigned long long cp_phase_clocks[PH_PHASES + 1];
-// block 0's first thread: global timer (ns) and clock64 before the first
-// step and after the last
-__device__ long long cp_phase_span[4];
-
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define PHASE_STAMP(k)               \
-  do {                               \
-    const long long now = clock64(); \
-    ph_clocks[k] += now - ph_last;   \
-    ph_last = now;                   \
-  } while (0)
-#else
-#define PHASE_STAMP(k) \
-  do {                 \
-  } while (0)
-#endif
+// K6's two kernels run one body (rollout<ONCHIP>, as csrc/episode_scan.cuh
+// describes): with each world's carry in the block's shared memory (ONCHIP,
+// cp_rollout_onchip_kernel), or in the output arrays in device memory
+// (cp_rollout_kernel).  The carry: state, action word, checksum, done count.
+constexpr int CARRY_BYTES = 16 + 4 + 4 + 4;
 
 #define CP_ROLLOUT_PARAMS                                                                  \
   const float4 *__restrict__ st_in, const int32_t *__restrict__ rng_in,                    \
@@ -240,7 +195,7 @@ __device__ __forceinline__ long long global_ns() {
 
 template <bool ONCHIP>
 __device__ __forceinline__ void rollout(CP_ROLLOUT_PARAMS) {
-  __shared__ int counts[2][RANK_COUNTS];  // by the step's parity
+  __shared__ int counts[2][episode::RANK_COUNTS];  // by the step's parity
   __shared__ int scan_smem[episode::SCAN_SMEM_INTS];
   extern __shared__ __align__(16) unsigned char carry_smem[];
   cg::grid_group grid = cg::this_grid();
@@ -266,13 +221,7 @@ __device__ __forceinline__ void rollout(CP_ROLLOUT_PARAMS) {
     }
   }
   uint32_t base = (uint32_t)cnt_in[0];
-#ifdef CP_PHASE_STAMPS
-  long long ph_clocks[PH_PHASES] = {}, ph_last = clock64();
-  if (blockIdx.x == 0 && tid == 0) {
-    cp_phase_span[0] = global_ns();
-    cp_phase_span[1] = ph_last;
-  }
-#endif
+  EPISODE_STAMPS_BEGIN
   for (int t = 0; t < T; ++t) {
     int* cnt = counts[t & 1];
     int* step_totals = totals + (t & 1) * G;
@@ -296,66 +245,30 @@ __device__ __forceinline__ void rollout(CP_ROLLOUT_PARAMS) {
       if (lane == 0) cnt[s * warps + warp] = __popc(b);
       dmask |= (uint32_t)done << s;
     }
-    PHASE_STAMP(PH_A);
+    EPISODE_STAMP(episode::PH_A);
     __syncthreads();
-    PHASE_STAMP(PH_BARRIER);
+    EPISODE_STAMP(episode::PH_BARRIER);
     if (warp == 0) {
-      // the counts' exclusive scan in world order ((slot, warp) order),
-      // RANK_COUNTS / 32 consecutive counts a lane, and the block's total
-      constexpr int PER = RANK_COUNTS / 32;
-      const int n_counts = slots * warps;
-      int v[PER], sum = 0;
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int j = lane * PER + k;
-        v[k] = j < n_counts ? cnt[j] : 0;
-        sum += v[k];
-      }
-      int incl = sum;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int u = __shfl_up_sync(episode::FULL_MASK, incl, d);
-        if (lane >= d) incl += u;
-      }
-      int run = incl - sum;
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int j = lane * PER + k;
-        if (j < n_counts) cnt[j] = run;
-        run += v[k];
-      }
-      if (lane == 31) step_totals[blockIdx.x] = incl;
+      // the counts' exclusive scan in world order, and the block's total
+      const int total = episode::scan_counts(cnt, slots * warps);
+      if (lane == 0) step_totals[blockIdx.x] = total;
     }
-    PHASE_STAMP(PH_SCAN);
+    EPISODE_STAMP(episode::PH_SCAN);
     // the parity buffers let one sync a step suffice: a block writes the
     // next step's counts only after every block has passed this sync, hence
     // finished reading the counts of two steps back
     grid.sync();
-    PHASE_STAMP(PH_GRID);
+    EPISODE_STAMP(episode::PH_GRID);
     // phase B: rank this step's resets over the whole batch and draw them,
     // the warp's done worlds one a lane in (slot, lane) order
     uint32_t before, all;
     episode::block_offsets(step_totals, blockIdx.x, G, scan_smem, &before, &all);
     const uint32_t next = base + before;
-    PHASE_STAMP(PH_OFFSETS);
-    int resets = 0;
-    for (int s = 0; s < slots; ++s)
-      resets += __popc(__ballot_sync(episode::FULL_MASK, (dmask >> s) & 1u));
+    EPISODE_STAMP(episode::PH_OFFSETS);
+    const int resets = episode::warp_resets(dmask, slots);
     for (int j0 = 0; j0 < resets; j0 += 32) {
-      const int j = j0 + lane;  // the warp's j-th done world
-      int i = -1, seen = 0;
       uint32_t rank = 0u;
-      for (int s = 0; s < slots; ++s) {
-        const unsigned b = __ballot_sync(episode::FULL_MASK, (dmask >> s) & 1u);
-        const int c = __popc(b);
-        if (j >= seen && j < seen + c) {
-          unsigned rest = b;  // drop the j - seen lowest
-          for (int k = 0; k < j - seen; ++k) rest &= rest - 1u;
-          i = s * block + warp * 32 + __ffs(rest) - 1;
-          rank = (uint32_t)cnt[s * warps + warp] + (uint32_t)(j - seen);
-        }
-        seen += c;
-      }
+      const int i = episode::nth_done(dmask, slots, cnt, j0 + lane, &rank);
       if (i >= 0) {
         uint32_t w;
         const Pole p = fresh(next + rank, &w);
@@ -366,20 +279,9 @@ __device__ __forceinline__ void rollout(CP_ROLLOUT_PARAMS) {
     }
     __syncwarp();  // the owners read the drawn worlds next step
     base += all;
-    PHASE_STAMP(PH_DRAWS);
+    EPISODE_STAMP(episode::PH_DRAWS);
   }
-#ifdef CP_PHASE_STAMPS
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < PH_PHASES; ++k)
-      atomicAdd(&cp_phase_clocks[k], (unsigned long long)ph_clocks[k]);
-    atomicAdd(&cp_phase_clocks[PH_PHASES], 1ull);
-  }
-  if (blockIdx.x == 0 && tid == 0) {
-    cp_phase_span[2] = global_ns();
-    cp_phase_span[3] = clock64();
-  }
-#endif
+  EPISODE_STAMPS_END
   if (ONCHIP) {
     for (int s = 0; s < slots; ++s) {
       const int i = s * block + tid, n = first + i;
@@ -394,7 +296,8 @@ __device__ __forceinline__ void rollout(CP_ROLLOUT_PARAMS) {
   if (blockIdx.x == 0 && tid == 0) cnt_out[0] = (int64_t)base;
 }
 
-__global__ void __launch_bounds__(K6_THREADS, 1) cp_rollout_onchip_kernel(CP_ROLLOUT_PARAMS) {
+__global__ void __launch_bounds__(episode::ROLLOUT_THREADS, 1)
+cp_rollout_onchip_kernel(CP_ROLLOUT_PARAMS) {
   rollout<true>(CP_ROLLOUT_ARGS);
 }
 
@@ -402,46 +305,9 @@ __global__ void __launch_bounds__(THREADS) cp_rollout_kernel(CP_ROLLOUT_PARAMS) 
   rollout<false>(CP_ROLLOUT_ARGS);
 }
 
-// K6's shape: the on-chip kernel with the fewest slots at which blocks of
-// whole warps (at most K6_THREADS) spread N worlds over every SM, each block
-// resident with its carry in shared memory; else the device-memory kernel
-// on the resident grid.
-struct Shape {
-  bool onchip;
-  int blocks, threads, slots;
-  size_t smem;
-};
-
-cudaError_t rollout_shape(int N, int device, Shape* sh) {
-  int sms = 0, optin = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  const void* kernel = (const void*)cp_rollout_onchip_kernel;
-  for (int k = 1; k <= K6_MAX_SLOTS; ++k) {
-    const int per_sm = (N + sms * k - 1) / (sms * k);  // threads an SM at k slots
-    const int threads = (per_sm + 31) / 32 * 32;
-    if (threads > K6_THREADS) continue;
-    const size_t need = (size_t)k * threads * CARRY_BYTES;
-    if (need + K6_STATIC_SMEM > (size_t)optin) break;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
-    if (err != cudaSuccess) return err;
-    int resident = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, need);
-    if (err != cudaSuccess) return err;
-    const int g = (N + k * threads - 1) / (k * threads);
-    if (g <= resident * sms) {
-      *sh = Shape{true, g, threads, k, need};
-      return cudaSuccess;
-    }
-  }
-  int max_blocks = 0;
-  err = episode::resident_blocks((const void*)cp_rollout_kernel, device, &max_blocks);
-  if (err != cudaSuccess) return err;
-  *sh = Shape{false, 0, THREADS, 0, 0};
-  episode::split(N, max_blocks, &sh->blocks, &sh->slots);
-  return cudaSuccess;
+cudaError_t rollout_shape(int N, int device, episode::Shape* sh) {
+  return episode::rollout_shape((const void*)cp_rollout_onchip_kernel,
+                                (const void*)cp_rollout_kernel, CARRY_BYTES, N, device, sh);
 }
 
 }  // namespace
@@ -479,7 +345,7 @@ int cp_rollout(const float* st_in, const int32_t* rng_in, const int32_t* arng_in
                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  Shape sh;
+  episode::Shape sh;
   err = rollout_shape(N, device, &sh);
   if (err != cudaSuccess) return (int)err;
   if (sh.slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
@@ -500,24 +366,16 @@ int cp_rollout(const float* st_in, const int32_t* rng_in, const int32_t* arng_in
 // 1 where K6 runs N worlds with their carry on chip, 0 where in device
 // memory, or a negative error.
 int cp_rollout_onchip(int N, int device) {
-  Shape sh;
+  episode::Shape sh;
   const cudaError_t err = rollout_shape(N, device, &sh);
   return err != cudaSuccess ? -(int)err : (int)sh.onchip;
 }
 
 const char* cp_error_string(int err) { return episode::error_string(err); }
 
-#ifdef CP_PHASE_STAMPS
-// The phase sums of the rollouts since the last call (PH_PHASES clocks and
-// the number of warps), zeroed here, and the last rollout's span.
+#ifdef EPISODE_PHASE_STAMPS
 int cp_phase_take(unsigned long long* clocks, long long* span) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(clocks, cp_phase_clocks, sizeof(cp_phase_clocks));
-  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(span, cp_phase_span, sizeof(cp_phase_span));
-  const unsigned long long zero[PH_PHASES + 1] = {};
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(cp_phase_clocks, zero, sizeof(zero));
-  return (int)err;
+  return episode::phase_take(clocks, span);
 }
 #endif
 

@@ -16,8 +16,11 @@
 //     barrier (the end of a launch, or a grid-wide sync in the persistent
 //     kernels) `block_offsets` sums the totals of the blocks before it, and of
 //     all blocks, over the whole block;
-//   * or, in a kernel of one launch without a grid-wide sync (K3),
+//   * or, in a kernel of one launch without a grid-wide sync (K3, K9),
 //     `look_back` sums them as each block's predecessors publish them.
+//
+// The persistent rollouts K6 and K10 rank a step in one pass (`scan_counts`,
+// `nth_done`) and take their shape from `rollout_shape`, below.
 //
 // The world -> (block, slot, thread) map below assigns each block a
 // contiguous run of worlds, so (block, slot, thread) order is world order,
@@ -26,6 +29,9 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace episode {
 
@@ -199,4 +205,259 @@ __device__ __forceinline__ uint32_t look_back(unsigned long long* flags, int til
   return before;
 }
 
+// ---- the persistent rollouts (K6, K10) --------------------------------------
+//
+// A rollout runs T steps in one cooperative launch.  Its two kernels run one
+// body: with every world's carry in the block's dynamic shared memory (the
+// on-chip kernel: blocks of up to ROLLOUT_THREADS threads, sized to spread
+// the worlds over every SM, up to ROLLOUT_MAX_SLOTS worlds a thread), or in
+// the output arrays in device memory (blocks of THREADS).  Block b owns the
+// worlds [b * slots * threads, (b + 1) * slots * threads), slot s of thread
+// t being world s * threads + t of them.  A step ranks its resets in one
+// pass: a ballot per (slot, warp), whose count lane 0 notes in world order
+// at cnt[s * warps + warp]; one block barrier; `scan_counts` by the first
+// warp; the block's total to a buffer of the step's parity; one grid-wide
+// sync; the counts of the blocks before it; then each warp hands its done
+// worlds to its lanes in order (`nth_done`), so a warp draws about one fresh
+// episode a lane, not one per slot that holds a reset.
+
+constexpr int ROLLOUT_THREADS = 1024;
+constexpr int ROLLOUT_MAX_SLOTS = 8;  // 8,192 worlds a block: 224 KB at 28 B each
+constexpr int RANK_COUNTS = 256;      // (slot, warp) counts a step, at most
+static_assert(ROLLOUT_MAX_SLOTS * (ROLLOUT_THREADS / 32) <= RANK_COUNTS &&
+                  MAX_ROLLOUT_SLOTS * (THREADS / 32) <= RANK_COUNTS,
+              "a step's (slot, warp) counts fit the scan");
+
+// The first warp: the exclusive scan of the block's `n` (slot, warp) counts
+// in place, RANK_COUNTS / 32 consecutive counts a lane; returns the block's
+// total on every lane.
+__device__ __forceinline__ int scan_counts(int* cnt, int n) {
+  constexpr int PER = RANK_COUNTS / 32;
+  const int lane = threadIdx.x & 31;
+  int v[PER], sum = 0;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = lane * PER + k;
+    v[k] = j < n ? cnt[j] : 0;
+    sum += v[k];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(FULL_MASK, incl, d);
+    if (lane >= d) incl += u;
+  }
+  int run = incl - sum;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = lane * PER + k;
+    if (j < n) cnt[j] = run;
+    run += v[k];
+  }
+  return __shfl_sync(FULL_MASK, incl, 31);
+}
+
+// The done worlds of the calling warp this step; bit s of `dmask` is the
+// lane's done flag in slot s.
+__device__ __forceinline__ int warp_resets(uint32_t dmask, int slots) {
+  int resets = 0;
+  for (int s = 0; s < slots; ++s) resets += __popc(__ballot_sync(FULL_MASK, (dmask >> s) & 1u));
+  return resets;
+}
+
+// The warp's j-th done world in (slot, lane) order: its index in the block's
+// run of worlds, or -1 past the warp's last, and in `rank` its rank in the
+// block (`cnt` as scan_counts leaves it).  Called by the whole warp.
+__device__ __forceinline__ int nth_done(uint32_t dmask, int slots, const int* cnt, int j,
+                                        uint32_t* rank) {
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  int i = -1, seen = 0;
+  for (int s = 0; s < slots; ++s) {
+    const unsigned b = __ballot_sync(FULL_MASK, (dmask >> s) & 1u);
+    const int c = __popc(b);
+    if (j >= seen && j < seen + c) {
+      unsigned rest = b;  // drop the j - seen lowest
+      for (int k = 0; k < j - seen; ++k) rest &= rest - 1u;
+      i = s * blockDim.x + warp * 32 + __ffs(rest) - 1;
+      *rank = (uint32_t)cnt[s * warps + warp] + (uint32_t)(j - seen);
+    }
+    seen += c;
+  }
+  return i;
+}
+
+// The sums of `totals[0, b)` and `totals[0, G)` (as block_offsets), taken
+// by the first warp alone, 8 loads in flight a lane, and handed to the block
+// through `out` with one barrier.  The caller must pass a block barrier
+// before the first warp's next call, which rewrites `out`.
+__device__ __forceinline__ void first_warp_offsets(const int* totals, int b, int G,
+                                                   uint32_t* out, uint32_t* before,
+                                                   uint32_t* all) {
+  constexpr int PER = 8;
+  if (threadIdx.x < 32) {
+    int sb = 0, sa = 0;
+    for (int i0 = 0; i0 < G; i0 += 32 * PER) {
+      int v[PER];
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int i = i0 + 32 * k + threadIdx.x;
+        v[k] = i < G ? __ldcg(totals + i) : 0;  // past L1: other blocks wrote these
+      }
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        sa += v[k];
+        sb += i0 + 32 * k + (int)threadIdx.x < b ? v[k] : 0;
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      sb += __shfl_xor_sync(FULL_MASK, sb, d);
+      sa += __shfl_xor_sync(FULL_MASK, sa, d);
+    }
+    if (threadIdx.x == 0) { out[0] = (uint32_t)sb; out[1] = (uint32_t)sa; }
+  }
+  __syncthreads();
+  *before = out[0];
+  *all = out[1];
+}
+
+// A rollout's launch: which kernel, its grid and its dynamic shared memory.
+struct Shape {
+  bool onchip;
+  int blocks, threads, slots;
+  size_t smem;
+};
+
+// The shape of a rollout over N worlds: the on-chip kernel with the fewest
+// slots at which blocks of whole warps (at most ROLLOUT_THREADS) spread the
+// worlds over every SM, each block resident with its carry of `carry_bytes`
+// a world beside the kernel's static shared memory; else the device-memory
+// kernel on the
+// resident grid of THREADS-thread blocks.  Computed once per kernel, device
+// and N (the device queries and the occupancy calculator cost host time on
+// every call otherwise); the on-chip kernel's dynamic shared memory limit is
+// raised to all the card allows once per device.
+inline cudaError_t rollout_shape(const void* onchip_kernel, const void* device_kernel,
+                                 int carry_bytes, int N, int device, Shape* sh) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int>, Shape> shapes;
+  static std::map<std::pair<const void*, int>, int> rooms;  // dynamic bytes a block
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(onchip_kernel, device, N);
+  const auto hit = shapes.find(key);
+  if (hit != shapes.end()) {
+    *sh = hit->second;
+    return cudaSuccess;
+  }
+  int sms = 0, optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  if (!rooms.count({onchip_kernel, device})) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, onchip_kernel);
+    if (err != cudaSuccess) return err;
+    const int room = optin - (int)attr.sharedSizeBytes;
+    err = cudaFuncSetAttribute(onchip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, room);
+    if (err != cudaSuccess) return err;
+    rooms[{onchip_kernel, device}] = room;
+  }
+  const int room = rooms[{onchip_kernel, device}];
+  Shape out{false, 0, THREADS, 0, 0};
+  bool found = false;
+  for (int k = 1; k <= ROLLOUT_MAX_SLOTS && !found; ++k) {
+    const int per_sm = (N + sms * k - 1) / (sms * k);  // threads an SM at k slots
+    const int threads = (per_sm + 31) / 32 * 32;
+    if (threads > ROLLOUT_THREADS) continue;
+    const size_t need = (size_t)k * threads * carry_bytes;
+    if (need > (size_t)room) break;
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, onchip_kernel, threads, need);
+    if (err != cudaSuccess) return err;
+    const int g = (N + k * threads - 1) / (k * threads);
+    if (g <= resident * sms) {
+      out = Shape{true, g, threads, k, need};
+      found = true;
+    }
+  }
+  if (!found) {
+    int max_blocks = 0;
+    err = resident_blocks(device_kernel, device, &max_blocks);
+    if (err != cudaSuccess) return err;
+    split(N, max_blocks, &out.blocks, &out.slots);
+  }
+  shapes[key] = out;
+  *sh = out;
+  return cudaSuccess;
+}
+
 }  // namespace episode
+
+// ---- phase stamps (K6, K10) -------------------------------------------------
+//
+// Compiled in only with -DEPISODE_PHASE_STAMPS (a build apart, by
+// chip_smoke.py --phases): every warp of a rollout sums the SM clocks
+// (clock64) it spends in each phase of its steps, and block 0 notes the
+// global timer and its SM clock at the first and the last step, which gives
+// the SM clock under load.  Phases: A (action, physics, done and the
+// ballots), the block barrier after A, the counts' scan (the first warp),
+// the grid-wide sync, the block's offset over the grid, and the draws.  The
+// compiler may move work across a stamp, so neighbouring phases split
+// approximately; their sum is the step.
+#ifdef EPISODE_PHASE_STAMPS
+namespace episode {
+enum { PH_A, PH_BARRIER, PH_SCAN, PH_GRID, PH_OFFSETS, PH_DRAWS, PH_PHASES };
+// the phases' clocks summed over the warps, then the number of warps
+__device__ unsigned long long phase_clocks[PH_PHASES + 1];
+// block 0's first thread: global timer (ns) and clock64 before the first
+// step and after the last
+__device__ long long phase_span[4];
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The phase sums of the rollouts since the last call (PH_PHASES clocks and
+// the number of warps), zeroed here, and the last rollout's span.
+inline int phase_take(unsigned long long* clocks, long long* span) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(clocks, phase_clocks, sizeof(phase_clocks));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(span, phase_span, sizeof(phase_span));
+  const unsigned long long zero[PH_PHASES + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(phase_clocks, zero, sizeof(zero));
+  return (int)err;
+}
+}  // namespace episode
+
+#define EPISODE_STAMPS_BEGIN                                          \
+  long long ph_clocks[episode::PH_PHASES] = {}, ph_last = clock64();  \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                          \
+    episode::phase_span[0] = episode::global_ns();                    \
+    episode::phase_span[1] = ph_last;                                 \
+  }
+#define EPISODE_STAMP(k)             \
+  do {                               \
+    const long long now = clock64(); \
+    ph_clocks[k] += now - ph_last;   \
+    ph_last = now;                   \
+  } while (0)
+#define EPISODE_STAMPS_END                                                        \
+  if ((threadIdx.x & 31) == 0) {                                                  \
+    for (int k = 0; k < episode::PH_PHASES; ++k)                                  \
+      atomicAdd(&episode::phase_clocks[k], (unsigned long long)ph_clocks[k]);     \
+    atomicAdd(&episode::phase_clocks[episode::PH_PHASES], 1ull);                  \
+  }                                                                               \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                                      \
+    episode::phase_span[2] = episode::global_ns();                                \
+    episode::phase_span[3] = clock64();                                           \
+  }
+#else
+#define EPISODE_STAMPS_BEGIN
+#define EPISODE_STAMP(k) \
+  do {                   \
+  } while (0)
+#define EPISODE_STAMPS_END
+#endif

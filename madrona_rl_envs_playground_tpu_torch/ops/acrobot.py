@@ -5,12 +5,18 @@ Two kernels, in ``csrc/acrobot.cu``:
 
 * **K9** ``fused_step``: one step per env (the RK4 step, the angle wrap and
   velocity clamp, the height or 501-step termination, the world-order
-  episode index of each reset and its TEA+LCG draw), as two launches: step
-  and count, then rank and reset;
+  episode index of each reset and its TEA+LCG draw), in one kernel launch
+  that ranks the resets by a decoupled look-back over tiles of envs spread
+  on the resident grid; its scan words persist per device and stream
+  (``_step_scan``), zero before the first launch and left zero by each;
 * **K10** ``fused_rollout``: T steps in one cooperative launch, actions from
   a per-env LCG (``((w' >>> 8) & 0xFFFFFF) * 3 >>> 24``, three torques), a
   per-env done count and the checksum ``chk + t1 + t2 + w1 + w2 + done``
-  after every step, in float32 and in that order.
+  after every step, in float32 and in that order; each env's carry in
+  shared memory where the resident grid holds it, else in device memory
+  (``rollout_kernel`` names the kernel a batch size gets).  The carry packs
+  the done count beside the step count, so a rollout takes at most
+  ``MAX_ROLLOUT_STEPS`` steps, on the CPU too.
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it runs its plain version (``fused_step_plain``,
@@ -37,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -49,6 +55,8 @@ from ..envs.acrobot import Env, State
 from . import _build
 
 ENV = Env()
+# K10's done counts share a word with 9 bits of step count (ac_rollout_max_steps)
+MAX_ROLLOUT_STEPS = 2**23 - 1
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"fused_step": 0, "fused_rollout": 0}
@@ -140,10 +148,19 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ac_scratch_ints.argtypes = [i]
         lib.ac_scratch_ints.restype = i
+        lib.ac_step_scratch_ints.argtypes = [i]
+        lib.ac_step_scratch_ints.restype = i
         lib.ac_step.argtypes = [p] * 11 + [i, i, p]
         lib.ac_step.restype = i
         lib.ac_rollout.argtypes = [p] * 13 + [i, i, i, p]
         lib.ac_rollout.restype = i
+        lib.ac_rollout_onchip.argtypes = [i, i]
+        lib.ac_rollout_onchip.restype = i
+        lib.ac_rollout_max_steps.argtypes = []
+        lib.ac_rollout_max_steps.restype = i
+        if lib.ac_rollout_max_steps() != MAX_ROLLOUT_STEPS:
+            raise RuntimeError("csrc/acrobot.cu's longest rollout differs from "
+                               "ops.acrobot.MAX_ROLLOUT_STEPS")
         lib.ac_error_string.argtypes = [i]
         lib.ac_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -168,6 +185,19 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed to launch: error {rc} ({msg})")
 
 
+# K9's scan words by (device index, stream): the kernel leaves them zero, so
+# they are zeroed once, on the stream whose launches then use them in order
+_STEP_SCAN: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _step_scan(lib, N: int, dev: torch.device, stream: int) -> torch.Tensor:
+    key, need = (dev.index or 0, stream), lib.ac_step_scratch_ints(N)
+    scan = _STEP_SCAN.get(key)
+    if scan is None or scan.numel() < need:
+        scan = _STEP_SCAN[key] = torch.zeros(need, dtype=torch.int32, device=dev)
+    return scan
+
+
 def _fused_step_cuda(ts: TState, counter: torch.Tensor, actions: torch.Tensor):
     N = _check_state(ts, counter)
     dev = ts.st.device
@@ -176,12 +206,11 @@ def _fused_step_cuda(ts: TState, counter: torch.Tensor, actions: torch.Tensor):
     st, steps, rng = torch.empty_like(ts.st), torch.empty_like(ts.steps), torch.empty_like(ts.rng)
     done = torch.empty(N, dtype=torch.bool, device=dev)
     cnt = torch.empty_like(counter)
-    scratch = torch.empty(lib.ac_scratch_ints(N), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ac_step(
         ts.st.data_ptr(), ts.steps.data_ptr(), ts.rng.data_ptr(), actions.data_ptr(),
         counter.data_ptr(), st.data_ptr(), steps.data_ptr(), rng.data_ptr(), done.data_ptr(),
-        cnt.data_ptr(), scratch.data_ptr(), N, dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+        cnt.data_ptr(), _step_scan(lib, N, dev, stream).data_ptr(), N, dev.index or 0, stream)
     _raise_on(rc, "ac_step_kernel")
     LAUNCHES["fused_step"] += 1
     return TState(st=st, steps=steps, rng=rng), done, cnt
@@ -209,6 +238,20 @@ def _fused_rollout_cuda(ts: TState, counter: torch.Tensor, act_rng: torch.Tensor
     return TState(st=st, steps=steps, rng=rng), arng, cnt, dcnt, chk
 
 
+def rollout_kernel(num_envs: int, device: DeviceLike = None) -> str:
+    """The K10 kernel ``fused_rollout`` launches for ``num_envs`` envs on the
+    card ``device``, by shape: ``ac_rollout_onchip_kernel`` where the resident
+    grid holds every env's carry in shared memory (up to 8,192 envs an SM),
+    else ``ac_rollout_kernel``, whose carry lies in device memory."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("the rollout kernels run on a CUDA device")
+    rc = _lib().ac_rollout_onchip(int(num_envs), dev.index or 0)
+    if rc < 0:
+        _raise_on(-rc, "ac_rollout_onchip")
+    return "ac_rollout_onchip_kernel" if rc else "ac_rollout_kernel"
+
+
 def fused_step(ts: TState, counter: torch.Tensor, actions: torch.Tensor):
     """One step of every env.  ``actions``: int32 ``[N, 1]`` in {0, 1, 2}.
     Returns ``(TState', done [N] bool, counter')``; the reward is -1 every
@@ -228,8 +271,8 @@ def fused_rollout(ts: TState, counter: torch.Tensor, act_rng: torch.Tensor,
     act_rng', counter', done_count [N] int32, checksum [N] f32)``.
 
     K10 on CUDA tensors; the plain version on CPU tensors."""
-    if num_steps < 1:
-        raise ValueError("num_steps must be >= 1")
+    if not 1 <= num_steps <= MAX_ROLLOUT_STEPS:
+        raise ValueError(f"num_steps must be in [1, {MAX_ROLLOUT_STEPS}], got {num_steps}")
     if ts.st.is_cuda:
         return _fused_rollout_cuda(ts, counter, act_rng, num_steps)
     _check_state(ts, counter)

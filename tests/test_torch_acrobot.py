@@ -258,6 +258,26 @@ def test_wrappers_check_their_inputs():
         tap.fused_rollout(ts, cnt, tap.init_action_rng(n, device=CPU), 0)
 
 
+def test_rollout_kernel_is_chosen_on_the_card():
+    """K10's two kernels (carry in shared memory, or in device memory) are
+    chosen by N in ``ac_rollout`` on the card, which ``rollout_kernel``
+    asks; the CPU has no such choice, and asking for it there is refused."""
+    with pytest.raises(ValueError, match="CUDA"):
+        tap.rollout_kernel(1024, "cpu")
+
+
+def test_rollout_steps_are_limited_by_the_packed_done_count():
+    """K10 packs each env's done count (at most T) above 9 bits of step
+    count in one 32-bit word, so ``fused_rollout`` refuses a T past 2^23 - 1
+    on every device, before it steps anything."""
+    assert tap.MAX_ROLLOUT_STEPS == (2**32 - 1) >> 9
+    n = 4
+    ts, cnt = tap.init_packed(n, device=CPU)
+    w = tap.init_action_rng(n, device=CPU)
+    with pytest.raises(ValueError, match="8388607"):
+        tap.fused_rollout(ts, cnt, w, tap.MAX_ROLLOUT_STEPS + 1)
+
+
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for build in (lambda: tap.init_packed(2), lambda: tap.init_action_rng(2),
