@@ -67,8 +67,6 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <map>
-#include <mutex>
 
 #include "episode_scan.cuh"
 
@@ -195,19 +193,9 @@ __device__ __forceinline__ float checksum(float chk, const Arm& s, bool done) {
 
 // ---- K9 ---------------------------------------------------------------------
 
-// K9's scan words (64-bit): the ticket, the count of tiles past their
-// look-back, then one look-back word per tile.  They must be zero at the
-// first launch; the last tile to pass its look-back (when no tile reads a
-// flag any more) zeroes them for the next, so a step is one kernel and no
-// memset.
-constexpr int SCAN_HEAD = 2;
-
-// A tile is `per` consecutive worlds, world s * THREADS + t of it in slot s
-// of thread t.  The launcher spreads the worlds evenly over the resident
-// grid, in whole 4-warp rows (one warp for each scheduler of an SM), up to
-// MAX_ROLLOUT_SLOTS slots, and the tile's resets are ranked and drawn as
-// K10's are (a ballot per (slot, warp), scan_counts, nth_done), the
-// look-back taking the place of the grid-wide sync.
+// A tile is `per` consecutive worlds (episode::step_plan), ranked and drawn
+// as the header's one-launch step kernels are; each slot's inputs are loaded
+// during the slot before.
 __global__ void __launch_bounds__(THREADS)
 ac_step_kernel(const float4* __restrict__ st_in, const int32_t* __restrict__ steps_in,
                const int32_t* __restrict__ rng_in, const int32_t* __restrict__ act,
@@ -216,16 +204,10 @@ ac_step_kernel(const float4* __restrict__ st_in, const int32_t* __restrict__ ste
                bool* __restrict__ done_out, int64_t* __restrict__ cnt_out,
                unsigned long long* __restrict__ scan, int N, int per) {
   constexpr int WARPS = THREADS / 32;
-  __shared__ int tile_s;
-  __shared__ bool last_s;
-  __shared__ uint32_t first_s;  // the tile's first episode index
   __shared__ int cnt[episode::RANK_COUNTS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // the tile in the order the blocks start, so that every tile the
-  // look-back waits on belongs to a running block
-  if (tid == 0) tile_s = (int)episode::take_ticket(scan);
-  __syncthreads();
-  const int tile = tile_s, first = tile * per, slots = (per + THREADS - 1) / THREADS;
+  const int tile = episode::step_tile(scan);
+  const int first = tile * per, slots = (per + THREADS - 1) / THREADS;
   const int last = min(per, N - first);  // worlds in this tile
   // the step, each slot's inputs loaded during the slot before; live worlds
   // are final
@@ -260,22 +242,8 @@ ac_step_kernel(const float4* __restrict__ st_in, const int32_t* __restrict__ ste
     if (lane == 0) cnt[s * WARPS + warp] = __popc(b);
     dmask |= (uint32_t)done << s;
   }
-  __syncthreads();
-  if (warp == 0) {
-    // the counts scanned in world order, the tile's offset over the batch
-    const uint32_t total = (uint32_t)episode::scan_counts(cnt, slots * WARPS);
-    const uint32_t before = episode::look_back(scan + SCAN_HEAD, tile, total);
-    if (lane == 0) {
-      first_s = (uint32_t)cnt_in[0] + before;
-      // the last tile's next index is the counter after the step
-      if (tile == (int)gridDim.x - 1) cnt_out[0] = (int64_t)(first_s + total);
-      __threadfence();  // this tile's reads of the flags come first
-      last_s = atomicAdd(scan + 1, 1ull) == gridDim.x - 1u;
-    }
-  }
-  __syncthreads();
   // the warp's done worlds drawn one a lane, in (slot, lane) order
-  const uint32_t next = first_s;
+  const uint32_t next = episode::step_rank(scan, tile, slots, cnt, cnt_in, cnt_out);
   const int resets = episode::warp_resets(dmask, slots);
   for (int j0 = 0; j0 < resets; j0 += 32) {
     uint32_t rank = 0u;
@@ -288,36 +256,6 @@ ac_step_kernel(const float4* __restrict__ st_in, const int32_t* __restrict__ ste
       steps_out[n] = 0;
     }
   }
-  if (last_s) {
-    for (int i = tid; i < SCAN_HEAD + (int)gridDim.x; i += THREADS) scan[i] = 0ull;
-  }
-}
-
-// K9's tiles for N worlds and the worlds a tile: the resident grid (asked
-// once per device), each tile a whole number of 128-world rows and at most
-// MAX_ROLLOUT_SLOTS slots; at most one tile a THREADS worlds.
-cudaError_t step_plan(int N, int device, int* tiles, int* per) {
-  static std::mutex mu;
-  static std::map<int, int> resident;
-  int max_blocks;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    const auto hit = resident.find(device);
-    if (hit == resident.end()) {
-      const cudaError_t err =
-          episode::resident_blocks((const void*)ac_step_kernel, device, &max_blocks);
-      if (err != cudaSuccess) return err;
-      resident[device] = max_blocks;
-    } else {
-      max_blocks = hit->second;
-    }
-  }
-  constexpr int ROW = 128;
-  const int want = min(max_blocks, (N + THREADS - 1) / THREADS);
-  const int rows = ((N + want - 1) / want + ROW - 1) / ROW;
-  *per = min(rows * ROW, episode::MAX_ROLLOUT_SLOTS * THREADS);
-  *tiles = (N + *per - 1) / *per;
-  return cudaSuccess;
 }
 
 // ---- K10 --------------------------------------------------------------------
@@ -474,10 +412,9 @@ extern "C" {
 // counts, its blocks holding at least one warp of worlds.
 int ac_scratch_ints(int N) { return 2 * ((N + 31) / 32); }
 
-// Ints of K9's scan words for N worlds (SCAN_HEAD, then one a tile, at most
-// one a THREADS worlds; 64-bit each): zero before the first launch, and left
-// zero by every launch.
-int ac_step_scratch_ints(int N) { return 2 * (SCAN_HEAD + (N + THREADS - 1) / THREADS); }
+// Ints of K9's scan words for N worlds (episode::step_scan_ints): zero
+// before the first launch, and left zero by every launch.
+int ac_step_scratch_ints(int N) { return episode::step_scan_ints(N); }
 
 int ac_step(const float* st_in, const int32_t* steps_in, const int32_t* rng_in,
             const int32_t* act, const int64_t* cnt_in, float* st_out, int32_t* steps_out,
@@ -486,7 +423,7 @@ int ac_step(const float* st_in, const int32_t* steps_in, const int32_t* rng_in,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int tiles = 0, per = 0;
-  err = step_plan(N, device, &tiles, &per);
+  err = episode::step_plan((const void*)ac_step_kernel, N, device, &tiles, &per);
   if (err != cudaSuccess) return (int)err;
   ac_step_kernel<<<tiles, THREADS, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(st_in), steps_in, rng_in, act, cnt_in,

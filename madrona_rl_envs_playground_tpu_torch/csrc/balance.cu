@@ -1,13 +1,17 @@
 // Balance Beam step kernels for Hopper (sm_90a), bound through a plain C
 // interface and loaded with ctypes (ops/balance.py).
 //
-// K7 `bb_step_kernel` + `bb_reset_kernel` replace the per-step Pallas kernel
+// K7 `bb_step_kernel` replaces the per-step Pallas kernel
 //   madrona_rl_envs_playground_tpu/ops/balance_pallas.py::_build_kernel
 //   (body _make_step2, launched by fused_step): the move, the rolling obs
 //   history, the reward (colocation, distance, fall-off), termination, the
 //   world-order episode index of every world that resets and its TEA+LCG
-//   reset draw (2 positions).  One fused_step is these two launches, split
-//   as in csrc/cartpole.cu: step and count, then rank and reset.
+//   reset draw (2 positions).  One kernel launch, as K5's and K9's (a tile
+//   of worlds spread on the resident grid a block, ranked over the batch by
+//   a look-back; csrc/episode_scan.cuh), in two passes over the tile (which
+//   worlds end; then step, draw and write each world once, in world order),
+//   with each warp's obs records staged through shared memory (see K7
+//   below).
 // K8 `bb_rollout_kernel` replaces the persistent rollout Pallas kernels
 //   ops/balance_pallas.py::_build_rollout_kernel and
 //   _build_rollout_kernel_packed (fused_rollout): T steps in one cooperative
@@ -28,14 +32,17 @@
 // all int32; the reward is f32 [N] (both seats get it).  The per-step
 // actions are [N, 2] int32, as the sampler draws them; the rollout's action
 // words are [2, N], as JAX's init_action_rng lays them out.  Worlds are
-// assigned to blocks and slots as in csrc/cartpole.cu.
+// assigned to blocks and slots as in csrc/cartpole.cu (K7 as K5, K8 as
+// episode_scan.cuh's `world`).
 //
-// What bounds them on an H100.  K7 moves 157 B per world-step (80 B read,
-// 77 B written) for about 60 integer operations, so device-memory bytes
-// bound it.  K8 reads and writes each world once per launch and does its
-// operations T times, so operations bound it; its carry of 24 B a world
-// (25 MB at 1M worlds) stays in the L2, and a step moves about 40 B of it
-// per world there, beside the grid-wide sync per step.
+// What bounds them on an H100.  K7 moves 157 B per world-step (80 B read, 77 B
+// written, each once in one launch) for about 60 integer operations, so
+// device-memory bytes bound it, and a world's 56-B obs record, 8 B past a 16-B
+// boundary at every odd world, is most of them: a warp moves its 32 records as
+// whole 16-B words through shared memory.  K8 reads and writes each world once
+// per launch and does its operations T times, so operations bound it; its
+// carry of 24 B a world (25 MB at 1M worlds) stays in the L2, and a step moves
+// about 40 B of it per world there, beside the grid-wide sync per step.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -153,55 +160,174 @@ __device__ __forceinline__ int action(uint32_t w) {
 
 // ---- K7 ---------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-bb_step_kernel(const int2* __restrict__ loc_in, const int2* __restrict__ obs_in,
-               const int32_t* __restrict__ time_in, const int2* __restrict__ act,
-               int2* __restrict__ loc_out, int2* __restrict__ obs_out,
-               int32_t* __restrict__ time_out, float* __restrict__ rew_out,
-               bool* __restrict__ done_out, int* __restrict__ totals, int N, int slots) {
-  int count = 0;
-  for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
-    bool done = false;
-    if (n < N) {
-      Beam b = load(loc_in, obs_in, time_in, n);
-      const int2 a = act[n];
-      float r;
-      done = transition(b, a.x, a.y, &r);
-      store(loc_out, obs_out, time_out, n, b);  // the reset kernel overwrites the done worlds
-      rew_out[n] = r;
-      done_out[n] = done;
-    }
-    count += __syncthreads_count(done);
-  }
-  if (threadIdx.x == 0) totals[blockIdx.x] = count;
+// 16 bytes from device to shared memory in the background (cp.async): the
+// first `bytes` of them read, the rest zero-filled.  A thread's copies
+// since its last commit form a group; `copy_wait_all_but_one` returns when
+// every group of the thread but the newest has landed.
+__device__ __forceinline__ void copy_async(int4* smem, const int4* gmem, int bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
-bb_reset_kernel(const bool* __restrict__ done_in, const int32_t* __restrict__ rng_in,
-                const int64_t* __restrict__ cnt_in, const int* __restrict__ totals,
-                int2* __restrict__ loc_out, int2* __restrict__ obs_out,
-                int32_t* __restrict__ time_out, int32_t* __restrict__ rng_out,
-                int64_t* __restrict__ cnt_out, int N, int slots) {
-  __shared__ int smem[episode::SCAN_SMEM_INTS];
-  uint32_t before, unused;
-  episode::block_offsets(totals, blockIdx.x, blockIdx.x, smem, &before, &unused);
-  uint32_t next = (uint32_t)cnt_in[0] + before;  // index of the next reset
-  for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
-    const bool done = n < N && done_in[n];
-    int total;
-    const int rank = episode::block_rank(done, smem, &total);
-    if (done) {
-      uint32_t w;
-      store(loc_out, obs_out, time_out, n, fresh(next + (uint32_t)rank, &w));
-      rng_out[n] = (int32_t)w;
-    } else if (n < N) {
-      rng_out[n] = rng_in[n];
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+constexpr int WARP_WORDS = 32 * OBS / 4;  // a warp's 32 obs records in 16-B words: 112
+
+// The obs records of the warp's `count` worlds from world `first` (a
+// multiple of 32: a 16-B boundary) into `buf`, in whole 16-B words, lane l
+// copying words l, l + 32, ...; the last word of an odd count is half
+// read.  Every lane commits one group, empty or not.
+__device__ __forceinline__ void load_records(int4* buf, const int* obs, int first, int count) {
+  const int bytes = count * OBS * 4;
+  const int4* src = reinterpret_cast<const int4*>(obs + (size_t)first * OBS);
+  for (int k = threadIdx.x & 31; 16 * k < bytes; k += 32)
+    copy_async(buf + k, src + k, min(16, bytes - 16 * k));
+  copy_commit();
+}
+
+// The warp's `count` records in `buf` back to `obs` from world `first`, as
+// load_records read them: whole 16-B words, the last one of an odd count
+// its first 8-B half.
+__device__ __forceinline__ void store_records(int* obs, int first, const int4* buf, int count) {
+  const int bytes = count * OBS * 4;
+  int4* dst = reinterpret_cast<int4*>(obs + (size_t)first * OBS);
+  for (int k = threadIdx.x & 31; 16 * k < bytes; k += 32) {
+    const int4 v = buf[k];
+    if (bytes - 16 * k >= 16) {
+      dst[k] = v;
+    } else {
+      *reinterpret_cast<int2*>(dst + k) = make_int2(v.x, v.y);
     }
-    next += (uint32_t)total;
   }
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) cnt_out[0] = (int64_t)next;
+}
+
+// Whether a world's step ends its episode (transition's result), from its
+// positions, time and actions alone.
+__device__ __forceinline__ bool ends(int2 l, int t, int2 a) {
+  const int l0 = l.x + move(a.x), l1 = l.y + move(a.y);
+  return l0 < 0 || l0 >= NUM_SPACES || l1 < 0 || l1 >= NUM_SPACES || t - 1 == 0;
+}
+
+// A tile is `per` consecutive worlds (episode::step_plan), in two passes.
+// Pass 1 reads loc, time and the actions, notes which worlds end (`ends`)
+// with a ballot per (slot, warp), and the tile is ranked (step_rank).  Pass
+// 2 steps every world, draws each done world's fresh episode in place (its
+// rank: its (slot, warp)'s count before it and the lanes before it), and
+// writes every output once, in world order: each warp stages its 32 worlds'
+// obs records a slot in shared memory, two buffers a warp (the next slot's
+// records are copied in while this slot steps; each thread reads and
+// writes its own record there), and stores them as whole 16-B words;
+// loc, time, the episode word and the actions of the next slot are loaded
+// into registers meanwhile.  Pass 2 reads loc, time and the actions again,
+// from L2.  (Compacted draws after one pass, as K5's and K9's, write a done
+// world's record apart from its live neighbours', after the look-back, for
+// 68 % of worlds at 3-step episodes; on an H100 that ran several times
+// slower at 1M worlds: PERF.md, PR 9.)
+__global__ void __launch_bounds__(THREADS)
+bb_step_kernel(const int2* __restrict__ loc_in, const int* __restrict__ obs_in,
+               const int32_t* __restrict__ time_in, const int32_t* __restrict__ rng_in,
+               const int2* __restrict__ act, const int64_t* __restrict__ cnt_in,
+               int2* __restrict__ loc_out, int* __restrict__ obs_out,
+               int32_t* __restrict__ time_out, int32_t* __restrict__ rng_out,
+               float* __restrict__ rew_out, bool* __restrict__ done_out,
+               int64_t* __restrict__ cnt_out, unsigned long long* __restrict__ scan, int N,
+               int per) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ int4 stage[WARPS][2][WARP_WORDS];  // 28,672 B
+  __shared__ int cnt[episode::RANK_COUNTS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = episode::step_tile(scan);
+  const int first = tile * per, slots = (per + THREADS - 1) / THREADS;
+  const int last = min(per, N - first);  // worlds in this tile
+  // the warp's worlds of slot s: first + s * THREADS + warp * 32 + [0, count)
+  const auto count = [&](int s) { return min(32, max(0, last - (s * THREADS + warp * 32))); };
+  // pass 1: which worlds end
+  int2 nx_loc = make_int2(0, 0), nx_act = make_int2(0, 0);
+  int nx_time = 0;
+  if (tid < last) {
+    nx_loc = loc_in[first + tid];
+    nx_time = time_in[first + tid];
+    nx_act = act[first + tid];
+  }
+  for (int s = 0; s < slots; ++s) {
+    const int i = s * THREADS + tid, n = first + i;
+    const bool done = i < last && ends(nx_loc, nx_time, nx_act);
+    if (i + THREADS < last) {
+      nx_loc = loc_in[n + THREADS];
+      nx_time = time_in[n + THREADS];
+      nx_act = act[n + THREADS];
+    }
+    const unsigned b = __ballot_sync(episode::FULL_MASK, done);
+    if (lane == 0) cnt[s * WARPS + warp] = __popc(b);
+  }
+  // the first slot's records are copied in during the look-back
+  load_records(stage[warp][0], obs_in, first + warp * 32, count(0));
+  const uint32_t next = episode::step_rank(scan, tile, slots, cnt, cnt_in, cnt_out);
+  // pass 2: step, draw, write
+  int nx_rng = 0;
+  if (tid < last) {
+    nx_loc = loc_in[first + tid];
+    nx_time = time_in[first + tid];
+    nx_act = act[first + tid];
+    nx_rng = rng_in[first + tid];
+  }
+  for (int s = 0; s < slots; ++s) {
+    const int i = s * THREADS + tid, n = first + i, wfirst = first + s * THREADS + warp * 32;
+    int4* buf = stage[warp][s & 1];
+    Beam b;
+    b.l0 = nx_loc.x;
+    b.l1 = nx_loc.y;
+    b.t = nx_time;
+    const int2 a = nx_act;
+    int rng = nx_rng;
+    load_records(stage[warp][(s + 1) & 1], obs_in, wfirst + THREADS, count(s + 1));
+    if (i + THREADS < last) {
+      nx_loc = loc_in[n + THREADS];
+      nx_time = time_in[n + THREADS];
+      nx_act = act[n + THREADS];
+      nx_rng = rng_in[n + THREADS];
+    }
+    copy_wait_all_but_one();
+    __syncwarp();  // every lane's copies of this slot have landed
+    int2* rec = reinterpret_cast<int2*>(reinterpret_cast<int*>(buf) + lane * OBS);
+    bool done = false;
+    float r = 0.0f;
+    if (i < last) {
+#pragma unroll
+      for (int k = 0; k < OBS / 2; ++k) {
+        const int2 o = rec[k];
+        b.obs[2 * k] = o.x;
+        b.obs[2 * k + 1] = o.y;
+      }
+      done = transition(b, a.x, a.y, &r);
+    }
+    const unsigned db = __ballot_sync(episode::FULL_MASK, done);
+    if (i < last) {
+      if (done) {
+        uint32_t w;
+        const uint32_t rank = (uint32_t)cnt[s * WARPS + warp] + __popc(db & ((1u << lane) - 1u));
+        b = fresh(next + rank, &w);
+        rng = (int32_t)w;
+      }
+      rew_out[n] = r;
+      done_out[n] = done;
+      loc_out[n] = make_int2(b.l0, b.l1);
+      time_out[n] = b.t;
+      rng_out[n] = rng;
+#pragma unroll
+      for (int k = 0; k < OBS / 2; ++k) rec[k] = make_int2(b.obs[2 * k], b.obs[2 * k + 1]);
+    }
+    __syncwarp();  // every lane's record is in the buffer
+    store_records(obs_out, wfirst, buf, count(s));
+    __syncwarp();  // the buffer is read before the slot after next is copied in
+  }
 }
 
 // ---- K8 ---------------------------------------------------------------------
@@ -380,8 +506,14 @@ bb_rollout_kernel(const int2* __restrict__ loc_in, const int2* __restrict__ obs_
 
 extern "C" {
 
+// Ints of scratch a K8 launch over N worlds needs (block counts, two parities).
 int bb_scratch_ints(int N) { return episode::scratch_ints(N); }
 
+// Ints of K7's scan words for N worlds (episode::step_scan_ints): zero
+// before the first launch, and left zero by every launch.
+int bb_step_scratch_ints(int N) { return episode::step_scan_ints(N); }
+
+// `scratch`: the scan words, zero at the first launch (left zero by each).
 int bb_step(const int32_t* loc_in, const int32_t* obs_in, const int32_t* time_in,
             const int32_t* rng_in, const int32_t* act, const int64_t* cnt_in,
             int32_t* loc_out, int32_t* obs_out, int32_t* time_out, int32_t* rng_out,
@@ -389,20 +521,14 @@ int bb_step(const int32_t* loc_in, const int32_t* obs_in, const int32_t* time_in
             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int max_blocks = 0, blocks = 0, slots = 0;
-  err = episode::resident_blocks((const void*)bb_step_kernel, device, &max_blocks);
+  int tiles = 0, per = 0;
+  err = episode::step_plan((const void*)bb_step_kernel, N, device, &tiles, &per);
   if (err != cudaSuccess) return (int)err;
-  episode::split(N, max_blocks, &blocks, &slots);
-  cudaStream_t s = (cudaStream_t)stream;
-  int2* loc2 = reinterpret_cast<int2*>(loc_out);
-  int2* obs2 = reinterpret_cast<int2*>(obs_out);
-  bb_step_kernel<<<blocks, THREADS, 0, s>>>(
-      reinterpret_cast<const int2*>(loc_in), reinterpret_cast<const int2*>(obs_in), time_in,
-      reinterpret_cast<const int2*>(act), loc2, obs2, time_out, rew, done, scratch, N, slots);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bb_reset_kernel<<<blocks, THREADS, 0, s>>>(done, rng_in, cnt_in, scratch, loc2, obs2,
-                                             time_out, rng_out, cnt_out, N, slots);
+  bb_step_kernel<<<tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const int2*>(loc_in), obs_in, time_in, rng_in,
+      reinterpret_cast<const int2*>(act), cnt_in, reinterpret_cast<int2*>(loc_out), obs_out,
+      time_out, rng_out, rew, done, cnt_out, reinterpret_cast<unsigned long long*>(scratch), N,
+      per);
   return (int)cudaGetLastError();
 }
 

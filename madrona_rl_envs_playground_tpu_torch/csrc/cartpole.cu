@@ -1,15 +1,18 @@
 // Cartpole step kernels for Hopper (sm_90a), bound through a plain C
 // interface and loaded with ctypes (ops/cartpole.py).
 //
-// K5 `cp_step_kernel` + `cp_reset_kernel` replace the per-step Pallas kernel
+// K5 `cp_step_kernel` replaces the per-step Pallas kernel
 //   madrona_rl_envs_playground_tpu/ops/cartpole_pallas.py::_build_kernel
 //   (body _make_step2, launched by fused_step): Euler physics, termination,
 //   the world-order episode index of every world that resets, and its
-//   TEA+LCG reset draw (4 uniforms).  One fused_step is these two launches:
-//   the first steps every world and writes each block's count of done
-//   worlds; the second ranks the done worlds (csrc/episode_scan.cuh) and
-//   draws their fresh episodes.  The launch boundary is the barrier between
-//   the two halves of the scan, so no block waits on another.
+//   TEA+LCG reset draw (4 uniforms).  One kernel launch, as K9's
+//   (csrc/acrobot.cu): a block steps a tile of worlds spread on the resident
+//   grid, ranks its done worlds over the batch by a decoupled look-back over
+//   the tiles in the order the blocks start (csrc/episode_scan.cuh's
+//   one-launch step kernels), and each warp draws its done worlds' fresh
+//   episodes.  No memset and no device query per call: the resident grid is
+//   asked once per device, and the scan words are left zero for the next
+//   launch.
 // K6 `cp_rollout_onchip_kernel` / `cp_rollout_kernel` replace the
 //   persistent rollout Pallas kernels ops/cartpole_pallas.py::
 //   _build_rollout_kernel and _build_rollout_kernel_packed (fused_rollout):
@@ -30,10 +33,10 @@
 //
 // Layout.  The state is env-major [N, 4] f32 (x, x_dot, theta, theta_dot):
 // one 16-byte load and store per world, and the same memory is the [N, 1, 4]
-// obs the policy reads.  The episode LCG words are int32 [N].  Block b owns
-// a contiguous run of slots * (its threads) worlds (episode_scan.cuh's
-// `world` for K5), so the loads of a slot are coalesced and (block, slot,
-// thread) order is world order.
+// obs the policy reads.  The episode LCG words are int32 [N].  A block owns
+// a contiguous run of worlds (K5's tile, K6's slots * (its threads)), so the
+// loads of a slot are coalesced and (block, slot, thread) order is world
+// order.
 //
 // Exactness.  The physics is written with __fadd_rn/__fsub_rn/__fmul_rn/
 // __fdiv_rn, one IEEE rounding per operation in the JAX operation order:
@@ -44,8 +47,9 @@
 // JAX constants, written as hex floats.
 //
 // What bounds them on an H100.  K5 moves 45 B per world-step (state 16 B,
-// LCG word 4 B and action 4 B read; state, word and done written) and does
-// about 100 instructions, so device-memory bytes bound it.  K6 reads and
+// LCG word 4 B and action 4 B read; state, word and done written, each once
+// in one launch) and does about 100 instructions, so device-memory bytes
+// bound it.  K6 reads and
 // writes each world once per launch but does its ~98 instructions a step T
 // times, so operations bound it.  Its per-step carry (state, action word,
 // checksum, done count: 28 B) stays in shared memory for all T steps where
@@ -63,7 +67,6 @@
 
 namespace cg = cooperative_groups;
 using episode::THREADS;
-using episode::world;
 
 namespace {
 
@@ -130,50 +133,65 @@ __device__ __forceinline__ Pole fresh(uint32_t idx, uint32_t* word) {
 
 // ---- K5 ---------------------------------------------------------------------
 
+// A tile is `per` consecutive worlds (episode::step_plan); each slot's
+// state, action and episode word are loaded during the slot before.  A live
+// world's state and word are written once in its slot, a done world's once
+// at its draw.
 __global__ void __launch_bounds__(THREADS)
-cp_step_kernel(const float4* __restrict__ st_in, const int32_t* __restrict__ act,
-               float4* __restrict__ st_out, bool* __restrict__ done_out,
-               int* __restrict__ totals, int N, int slots) {
-  int count = 0;
+cp_step_kernel(const float4* __restrict__ st_in, const int32_t* __restrict__ rng_in,
+               const int32_t* __restrict__ act, const int64_t* __restrict__ cnt_in,
+               float4* __restrict__ st_out, int32_t* __restrict__ rng_out,
+               bool* __restrict__ done_out, int64_t* __restrict__ cnt_out,
+               unsigned long long* __restrict__ scan, int N, int per) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ int cnt[episode::RANK_COUNTS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = episode::step_tile(scan);
+  const int first = tile * per, slots = (per + THREADS - 1) / THREADS;
+  const int last = min(per, N - first);  // worlds in this tile
+  uint32_t dmask = 0u;
+  float4 nx = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int nx_act = 0, nx_rng = 0;
+  if (tid < last) {
+    nx = st_in[first + tid];
+    nx_act = act[first + tid];
+    nx_rng = rng_in[first + tid];
+  }
   for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
+    const int i = s * THREADS + tid, n = first + i;
+    Pole p{nx.x, nx.y, nx.z, nx.w};
+    const int a = nx_act, rng = nx_rng;
+    if (i + THREADS < last) {
+      nx = st_in[n + THREADS];
+      nx_act = act[n + THREADS];
+      nx_rng = rng_in[n + THREADS];
+    }
     bool done = false;
-    if (n < N) {
-      Pole p = load(st_in, n);
-      done = transition(p, act[n]);
-      store(st_out, n, p);  // the reset kernel overwrites the done worlds
+    if (i < last) {
+      done = transition(p, a);
+      if (!done) {
+        store(st_out, n, p);
+        rng_out[n] = rng;
+      }
       done_out[n] = done;
     }
-    count += __syncthreads_count(done);
+    const unsigned b = __ballot_sync(episode::FULL_MASK, done);
+    if (lane == 0) cnt[s * WARPS + warp] = __popc(b);
+    dmask |= (uint32_t)done << s;
   }
-  if (threadIdx.x == 0) totals[blockIdx.x] = count;
-}
-
-__global__ void __launch_bounds__(THREADS)
-cp_reset_kernel(const bool* __restrict__ done_in, const int32_t* __restrict__ rng_in,
-                const int64_t* __restrict__ cnt_in, const int* __restrict__ totals,
-                float4* __restrict__ st_out, int32_t* __restrict__ rng_out,
-                int64_t* __restrict__ cnt_out, int N, int slots) {
-  __shared__ int smem[episode::SCAN_SMEM_INTS];
-  uint32_t before, unused;
-  episode::block_offsets(totals, blockIdx.x, blockIdx.x, smem, &before, &unused);
-  uint32_t next = (uint32_t)cnt_in[0] + before;  // index of the next reset
-  for (int s = 0; s < slots; ++s) {
-    const int n = world(slots, s);
-    const bool done = n < N && done_in[n];
-    int total;
-    const int rank = episode::block_rank(done, smem, &total);
-    if (done) {
+  // the warp's done worlds drawn one a lane, in (slot, lane) order
+  const uint32_t next = episode::step_rank(scan, tile, slots, cnt, cnt_in, cnt_out);
+  const int resets = episode::warp_resets(dmask, slots);
+  for (int j0 = 0; j0 < resets; j0 += 32) {
+    uint32_t rank = 0u;
+    const int i = episode::nth_done(dmask, slots, cnt, j0 + lane, &rank);
+    if (i >= 0) {
       uint32_t w;
-      store(st_out, n, fresh(next + (uint32_t)rank, &w));
+      const int n = first + i;
+      store(st_out, n, fresh(next + rank, &w));
       rng_out[n] = (int32_t)w;
-    } else if (n < N) {
-      rng_out[n] = rng_in[n];
     }
-    next += (uint32_t)total;
   }
-  // the last block's next index is the counter after the step
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) cnt_out[0] = (int64_t)next;
 }
 
 // ---- K6 ---------------------------------------------------------------------
@@ -314,28 +332,27 @@ cudaError_t rollout_shape(int N, int device, episode::Shape* sh) {
 
 extern "C" {
 
-// Ints of scratch a launch over N worlds needs: two parities of block
-// counts, K6's blocks holding at least one warp of worlds.
+// Ints of scratch a K6 launch over N worlds needs: two parities of block
+// counts, its blocks holding at least one warp of worlds.
 int cp_scratch_ints(int N) { return 2 * ((N + 31) / 32); }
 
+// Ints of K5's scan words for N worlds (episode::step_scan_ints): zero
+// before the first launch, and left zero by every launch.
+int cp_step_scratch_ints(int N) { return episode::step_scan_ints(N); }
+
+// `scratch`: the scan words, zero at the first launch (left zero by each).
 int cp_step(const float* st_in, const int32_t* rng_in, const int32_t* act,
             const int64_t* cnt_in, float* st_out, int32_t* rng_out, bool* done,
             int64_t* cnt_out, int* scratch, int N, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int max_blocks = 0, blocks = 0, slots = 0;
-  err = episode::resident_blocks((const void*)cp_step_kernel, device, &max_blocks);
+  int tiles = 0, per = 0;
+  err = episode::step_plan((const void*)cp_step_kernel, N, device, &tiles, &per);
   if (err != cudaSuccess) return (int)err;
-  episode::split(N, max_blocks, &blocks, &slots);
-  cudaStream_t s = (cudaStream_t)stream;
-  cp_step_kernel<<<blocks, THREADS, 0, s>>>(
-      reinterpret_cast<const float4*>(st_in), act, reinterpret_cast<float4*>(st_out), done,
-      scratch, N, slots);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cp_reset_kernel<<<blocks, THREADS, 0, s>>>(done, rng_in, cnt_in, scratch,
-                                             reinterpret_cast<float4*>(st_out), rng_out,
-                                             cnt_out, N, slots);
+  cp_step_kernel<<<tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(st_in), rng_in, act, cnt_in,
+      reinterpret_cast<float4*>(st_out), rng_out, done, cnt_out,
+      reinterpret_cast<unsigned long long*>(scratch), N, per);
   return (int)cudaGetLastError();
 }
 

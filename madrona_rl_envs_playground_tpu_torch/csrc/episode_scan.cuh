@@ -16,11 +16,13 @@
 //     barrier (the end of a launch, or a grid-wide sync in the persistent
 //     kernels) `block_offsets` sums the totals of the blocks before it, and of
 //     all blocks, over the whole block;
-//   * or, in a kernel of one launch without a grid-wide sync (K3, K9),
+//   * or, in a kernel of one launch without a grid-wide sync (K3, and the
+//     step kernels K5, K7 and K9 through `step_plan` and `step_rank`),
 //     `look_back` sums them as each block's predecessors publish them.
 //
 // The persistent rollouts K6 and K10 rank a step in one pass (`scan_counts`,
-// `nth_done`) and take their shape from `rollout_shape`, below.
+// `nth_done`) and take their shape from `rollout_shape`, below; the step
+// kernels rank their tile so too.
 //
 // The world -> (block, slot, thread) map below assigns each block a
 // contiguous run of worlds, so (block, slot, thread) order is world order,
@@ -286,6 +288,64 @@ __device__ __forceinline__ int nth_done(uint32_t dmask, int slots, const int* cn
   return i;
 }
 
+// ---- the one-launch step kernels (K5, K7, K9) -------------------------------
+//
+// A step kernel's block takes a tile of `per` consecutive worlds by ticket,
+// world s * THREADS + t of it in slot s of thread t, steps its slots, notes
+// each slot's done worlds with a ballot per (slot, warp) in `cnt` (no block
+// barrier), then `step_rank` gives the tile's first episode index over the
+// batch, and each warp draws its done worlds one a lane (`warp_resets`,
+// `nth_done`, above; K5, K9), or each done world is drawn in place in a second
+// pass over the tile (K7, csrc/balance.cu).  Scan words (64-bit): the ticket,
+// the count of tiles past their look-back, then one look-back word per tile.
+// They must be zero at the first launch; the last tile past its look-back
+// (when no tile reads a flag any more) zeroes them for the next, so a step is
+// one kernel node, with no memset.
+constexpr int SCAN_HEAD = 2;
+
+// Ints of scan words for a step over N worlds: at most one tile a THREADS
+// worlds (step_plan's tiles are whole rows of at least 128 worlds, spread
+// over at most N / THREADS blocks).  ops/_build.py's step_scan_ints mirrors it.
+inline int step_scan_ints(int N) { return 2 * (SCAN_HEAD + (N + THREADS - 1) / THREADS); }
+
+// The tile of the calling block, in the order the blocks start, so that every
+// tile a look-back waits on belongs to a running block.
+__device__ __forceinline__ int step_tile(unsigned long long* scan) {
+  __shared__ int tile_s;
+  if (threadIdx.x == 0) tile_s = (int)take_ticket(scan);
+  __syncthreads();
+  return tile_s;
+}
+
+// After the tile's slots: the first warp scans the `slots * THREADS / 32`
+// (slot, warp) counts in `cnt` in place (world order; `nth_done` reads the
+// ranks), takes the tile's offset over the batch by the look-back, and the
+// last tile in world order writes the counter after the step; the tile to
+// pass its look-back last zeroes the scan words.  Returns the tile's first
+// episode index on every thread, after one block barrier.
+__device__ __forceinline__ uint32_t step_rank(unsigned long long* scan, int tile, int slots,
+                                              int* cnt, const int64_t* cnt_in,
+                                              int64_t* cnt_out) {
+  __shared__ uint32_t first_s;
+  __shared__ bool last_s;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const uint32_t total = (uint32_t)scan_counts(cnt, slots * (THREADS / 32));
+    const uint32_t before = look_back(scan + SCAN_HEAD, tile, total);
+    if (threadIdx.x == 0) {
+      first_s = (uint32_t)cnt_in[0] + before;
+      if (tile == (int)gridDim.x - 1) cnt_out[0] = (int64_t)(first_s + total);
+      __threadfence();  // this tile's reads of the flags come first
+      last_s = atomicAdd(scan + 1, 1ull) == gridDim.x - 1u;
+    }
+  }
+  __syncthreads();
+  if (last_s) {
+    for (int i = threadIdx.x; i < SCAN_HEAD + (int)gridDim.x; i += THREADS) scan[i] = 0ull;
+  }
+  return first_s;
+}
+
 // The sums of `totals[0, b)` and `totals[0, G)` (as block_offsets), taken
 // by the first warp alone, 8 loads in flight a lane, and handed to the block
 // through `out` with one barrier.  The caller must pass a block barrier
@@ -319,6 +379,36 @@ __device__ __forceinline__ void first_warp_offsets(const int* totals, int b, int
   __syncthreads();
   *before = out[0];
   *all = out[1];
+}
+
+// A step kernel's tiles for N worlds and the worlds a tile: the resident grid
+// of `kernel` (asked once per kernel and device: the device queries and the
+// occupancy calculator cost host time on every call otherwise), each tile a
+// whole number of 128-world rows (one warp for each scheduler of an SM) and
+// at most MAX_ROLLOUT_SLOTS slots; at most one tile a THREADS worlds.
+inline cudaError_t step_plan(const void* kernel, int N, int device, int* tiles, int* per) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> resident;
+  int max_blocks;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_pair(kernel, device);
+    const auto hit = resident.find(key);
+    if (hit == resident.end()) {
+      const cudaError_t err = resident_blocks(kernel, device, &max_blocks);
+      if (err != cudaSuccess) return err;
+      resident[key] = max_blocks;
+    } else {
+      max_blocks = hit->second;
+    }
+  }
+  constexpr int ROW = 128;
+  const int need = (N + THREADS - 1) / THREADS;
+  const int want = max_blocks < need ? max_blocks : need;
+  const int rows = ((N + want - 1) / want + ROW - 1) / ROW;
+  *per = rows * ROW < MAX_ROLLOUT_SLOTS * THREADS ? rows * ROW : MAX_ROLLOUT_SLOTS * THREADS;
+  *tiles = (N + *per - 1) / *per;
+  return cudaSuccess;
 }
 
 // A rollout's launch: which kernel, its grid and its dynamic shared memory.

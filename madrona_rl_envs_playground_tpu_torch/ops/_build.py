@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
@@ -106,6 +106,38 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device, align: int = 
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name} must start on a {align}-byte boundary")
+
+
+# The one-launch step kernels' scan words (K5, K7, K9; csrc/episode_scan.cuh's
+# step_scan_ints): two 64-bit head words, then one a tile, at most one tile
+# a 256 worlds
+def step_scan_ints(num_envs: int) -> int:
+    return 2 * (2 + (num_envs + 255) // 256)
+
+
+def check_step_scan(c_ints: Callable[[int], int], source: str) -> None:
+    """Raise unless a library's count of scan words equals step_scan_ints."""
+    for n in (1, 256, 257, 1 << 20):
+        if c_ints(n) != step_scan_ints(n):
+            raise RuntimeError(f"csrc/{source}'s scan words for {n} envs differ from "
+                               "ops._build.step_scan_ints")
+
+
+# Scan words by (device index, stream), shared by the step kernels: each
+# launch leaves them zero, so they are zeroed once, on the stream whose
+# launches then use them in order, and grow with the largest batch
+_STEP_SCAN: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def step_scan(num_envs: int, device: torch.device, stream: int) -> torch.Tensor:
+    """Zeroed int32 scan words for a step of ``num_envs`` envs on ``stream``
+    of ``device``: the same buffer for every call on that stream while it is
+    large enough."""
+    key, need = (device.index or 0, stream), step_scan_ints(num_envs)
+    scan = _STEP_SCAN.get(key)
+    if scan is None or scan.numel() < need:
+        scan = _STEP_SCAN[key] = torch.zeros(need, dtype=torch.int32, device=device)
+    return scan
 
 
 def build_log(name: str) -> str:

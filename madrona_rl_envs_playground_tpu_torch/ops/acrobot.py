@@ -8,7 +8,7 @@ Two kernels, in ``csrc/acrobot.cu``:
   episode index of each reset and its TEA+LCG draw), in one kernel launch
   that ranks the resets by a decoupled look-back over tiles of envs spread
   on the resident grid; its scan words persist per device and stream
-  (``_step_scan``), zero before the first launch and left zero by each;
+  (``_build.step_scan``), zero before the first launch and left zero by each;
 * **K10** ``fused_rollout``: T steps in one cooperative launch, actions from
   a per-env LCG (``((w' >>> 8) & 0xFFFFFF) * 3 >>> 24``, three torques), a
   per-env done count and the checksum ``chk + t1 + t2 + w1 + w2 + done``
@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -150,6 +150,7 @@ def _lib() -> ctypes.CDLL:
         lib.ac_scratch_ints.restype = i
         lib.ac_step_scratch_ints.argtypes = [i]
         lib.ac_step_scratch_ints.restype = i
+        _build.check_step_scan(lib.ac_step_scratch_ints, "acrobot.cu")
         lib.ac_step.argtypes = [p] * 11 + [i, i, p]
         lib.ac_step.restype = i
         lib.ac_rollout.argtypes = [p] * 13 + [i, i, i, p]
@@ -185,19 +186,6 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed to launch: error {rc} ({msg})")
 
 
-# K9's scan words by (device index, stream): the kernel leaves them zero, so
-# they are zeroed once, on the stream whose launches then use them in order
-_STEP_SCAN: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _step_scan(lib, N: int, dev: torch.device, stream: int) -> torch.Tensor:
-    key, need = (dev.index or 0, stream), lib.ac_step_scratch_ints(N)
-    scan = _STEP_SCAN.get(key)
-    if scan is None or scan.numel() < need:
-        scan = _STEP_SCAN[key] = torch.zeros(need, dtype=torch.int32, device=dev)
-    return scan
-
-
 def _fused_step_cuda(ts: TState, counter: torch.Tensor, actions: torch.Tensor):
     N = _check_state(ts, counter)
     dev = ts.st.device
@@ -210,7 +198,7 @@ def _fused_step_cuda(ts: TState, counter: torch.Tensor, actions: torch.Tensor):
     rc = lib.ac_step(
         ts.st.data_ptr(), ts.steps.data_ptr(), ts.rng.data_ptr(), actions.data_ptr(),
         counter.data_ptr(), st.data_ptr(), steps.data_ptr(), rng.data_ptr(), done.data_ptr(),
-        cnt.data_ptr(), _step_scan(lib, N, dev, stream).data_ptr(), N, dev.index or 0, stream)
+        cnt.data_ptr(), _build.step_scan(N, dev, stream).data_ptr(), N, dev.index or 0, stream)
     _raise_on(rc, "ac_step_kernel")
     LAUNCHES["fused_step"] += 1
     return TState(st=st, steps=steps, rng=rng), done, cnt

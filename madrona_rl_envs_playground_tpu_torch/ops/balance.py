@@ -5,7 +5,10 @@ Two kernels, in ``csrc/balance.cu``:
 
 * **K7** ``fused_step``: one step per env (move, rolling obs history,
   reward, termination, the world-order episode index of each reset and its
-  TEA+LCG draw), as two launches: step and count, then rank and reset;
+  TEA+LCG draw), in one kernel launch as K5's (``ops/cartpole.py``), in two
+  passes over each tile of envs (which envs end; then step, draw and write
+  each env once, the obs records staged through shared memory); its scan
+  words persist per device and stream (``_build.step_scan``);
 * **K8** ``fused_rollout``: T steps in one cooperative launch, per-(env,
   seat) LCG actions, a per-env done count and the checksum
   ``((chk + f32(sum of the obs)) + reward) + f32(done)`` after every step;
@@ -175,6 +178,9 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bb_scratch_ints.argtypes = [i]
         lib.bb_scratch_ints.restype = i
+        lib.bb_step_scratch_ints.argtypes = [i]
+        lib.bb_step_scratch_ints.restype = i
+        _build.check_step_scan(lib.bb_step_scratch_ints, "balance.cu")
         lib.bb_step.argtypes = [p] * 14 + [i, i, p]
         lib.bb_step.restype = i
         lib.bb_rollout.argtypes = [p] * 16 + [i, i, i, p]
@@ -218,13 +224,12 @@ def _fused_step_cuda(ts: TState, counter: torch.Tensor, actions: torch.Tensor):
     rew = torch.empty(N, dtype=torch.float32, device=dev)
     done = torch.empty(N, dtype=torch.bool, device=dev)
     cnt = torch.empty_like(counter)
-    scratch = torch.empty(lib.bb_scratch_ints(N), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.bb_step(
         ts.loc.data_ptr(), ts.obs.data_ptr(), ts.time.data_ptr(), ts.rng.data_ptr(),
         actions.data_ptr(), counter.data_ptr(), out.loc.data_ptr(), out.obs.data_ptr(),
         out.time.data_ptr(), out.rng.data_ptr(), rew.data_ptr(), done.data_ptr(),
-        cnt.data_ptr(), scratch.data_ptr(), N, dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+        cnt.data_ptr(), _build.step_scan(N, dev, stream).data_ptr(), N, dev.index or 0, stream)
     _raise_on(rc, "bb_step_kernel")
     LAUNCHES["fused_step"] += 1
     return out, rew, done, cnt

@@ -4,8 +4,11 @@ Counterpart of ``madrona_rl_envs_playground_tpu/ops/cartpole_pallas.py``.
 Two kernels, in ``csrc/cartpole.cu``:
 
 * **K5** ``fused_step``: one step per env (Euler physics, termination, the
-  world-order episode index of each reset and its TEA+LCG draw), as two
-  launches: step and count, then rank and reset;
+  world-order episode index of each reset and its TEA+LCG draw), in one
+  kernel launch that ranks the resets by a decoupled look-back over tiles of
+  envs spread on the resident grid; its scan words persist per device and
+  stream (``_build.step_scan``), zero before the first launch and left zero
+  by each;
 * **K6** ``fused_rollout``: T steps in one cooperative launch, actions from
   a per-env LCG (bit 23 of the advanced word), a per-env done count and the
   checksum ``chk += x`` after every step; each env's carry in shared memory
@@ -136,6 +139,9 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.cp_scratch_ints.argtypes = [i]
         lib.cp_scratch_ints.restype = i
+        lib.cp_step_scratch_ints.argtypes = [i]
+        lib.cp_step_scratch_ints.restype = i
+        _build.check_step_scan(lib.cp_step_scratch_ints, "cartpole.cu")
         lib.cp_step.argtypes = [p] * 9 + [i, i, p]
         lib.cp_step.restype = i
         lib.cp_rollout.argtypes = [p] * 11 + [i, i, i, p]
@@ -173,11 +179,11 @@ def _fused_step_cuda(ts: TState, counter: torch.Tensor, actions: torch.Tensor):
     st, rng = torch.empty_like(ts.st), torch.empty_like(ts.rng)
     done = torch.empty(N, dtype=torch.bool, device=dev)
     cnt = torch.empty_like(counter)
-    scratch = torch.empty(lib.cp_scratch_ints(N), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.cp_step(
         ts.st.data_ptr(), ts.rng.data_ptr(), actions.data_ptr(), counter.data_ptr(),
         st.data_ptr(), rng.data_ptr(), done.data_ptr(), cnt.data_ptr(),
-        scratch.data_ptr(), N, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        _build.step_scan(N, dev, stream).data_ptr(), N, dev.index or 0, stream)
     _raise_on(rc, "cp_step_kernel")
     LAUNCHES["fused_step"] += 1
     return TState(st=st, rng=rng), done, cnt

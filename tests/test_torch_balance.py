@@ -12,6 +12,8 @@ kernels run only on the card, where ``chip_smoke.py`` holds them against
 these plain versions.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -88,14 +90,28 @@ def _assert_packed(t_ts, j_loc, j_obs, j_time, j_rng, msg):
     np.testing.assert_array_equal(t_ts.rng.numpy(), np.asarray(j_rng)[0], err_msg=f"{msg} rng")
 
 
-@pytest.mark.parametrize("start", [0, 2**32 - 64 - 100])
+def _edge_state(ts: tbp.TState, every: bool) -> tbp.TState:
+    """Both players mid-beam, where a move of 1 or 2 either way stays on
+    it, with 1 step left (every episode ends in the next step) or 3 (none
+    does); chip_smoke.py's edge_state."""
+    return dataclasses.replace(ts, loc=torch.full_like(ts.loc, 2),
+                               time=torch.full_like(ts.time, 1 if every else 3))
+
+
+# counter starts, then the two states the card's check also steps from:
+# every world resetting in one step, and none
+@pytest.mark.parametrize("start", [0, 2**32 - 64 - 100, "every_world_resets",
+                                   "no_world_resets"])
 def test_step_plain_matches_jax_fused_step(start):
     """K7's plain version against the JAX kernel on a 4-block grid (block
     16 of N = 64), so the SMEM counter carry between blocks is exercised.
     In the second case the counter starts 100 short of 2^32 and wraps
-    during the run."""
+    during the run; the last two take one step from ``_edge_state``."""
     n = 64
-    t_ts, t_cnt = tbp.init_packed(n, start, device=CPU)
+    edge = isinstance(start, str)
+    t_ts, t_cnt = tbp.init_packed(n, 0 if edge else start, device=CPU)
+    if edge:
+        t_ts = _edge_state(t_ts, start == "every_world_resets")
     cnt0 = int(t_cnt)
     j_st = _j_packed(t_ts)
     j_cnt = jnp.asarray(np.uint32(int(t_cnt)).view(np.int32))
@@ -103,7 +119,7 @@ def test_step_plain_matches_jax_fused_step(start):
                                                                 interpret=True))
     rs = np.random.RandomState(5)
     resets = 0
-    for t in range(30):
+    for t in range(1 if edge else 30):
         acts = rs.randint(0, 4, size=(n, 2)).astype(np.int32)
         *j_st, j_rew, j_done, j_cnt = j_step_k(*j_st, j_cnt, jnp.asarray(acts.T))
         t_ts, t_rew, t_done, t_cnt = tbp.fused_step(t_ts, t_cnt, torch.from_numpy(acts))
@@ -112,6 +128,9 @@ def test_step_plain_matches_jax_fused_step(start):
         assert int(t_cnt) == int(np.asarray(j_cnt).view(np.uint32)), t
         _assert_packed(t_ts, *j_st, f"t={t}")
         resets += int(t_done.sum())
+    if edge:
+        assert resets == (n if start == "every_world_resets" else 0)
+        return
     assert resets > 3 * n
     assert (int(t_cnt) < cnt0) == (start > 0)
 

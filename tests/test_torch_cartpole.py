@@ -29,6 +29,7 @@ from madrona_rl_envs_playground_tpu_torch.core.batch import batched_step as t_st
 from madrona_rl_envs_playground_tpu_torch.core.types import BatchState
 from madrona_rl_envs_playground_tpu_torch.envs import cartpole as tc
 from madrona_rl_envs_playground_tpu_torch.models.cleanrl import load_flax_params
+from madrona_rl_envs_playground_tpu_torch.ops import _build
 from madrona_rl_envs_playground_tpu_torch.ops import cartpole as tcp
 from madrona_rl_envs_playground_tpu_torch.train import selfplay as t_selfplay
 from madrona_rl_envs_playground_tpu_torch.train.fused_collect import make_fused_collect
@@ -121,19 +122,37 @@ def _assert_packed(t_ts, j_grid, j_rng, msg, tol=STEP_TOL):
     np.testing.assert_array_equal(t_ts.rng.numpy(), np.asarray(j_rng)[0], err_msg=f"{msg} rng")
 
 
-@pytest.mark.parametrize("start", [0, 2**32 - 64 - 50])
+def _edge_state(ts: tcp.TState, every: bool) -> tcp.TState:
+    """Every pole at rest at x = 3, past the 2.4 limit, where a step moves x
+    by tau * x_dot = 0 (every episode ends in the next step), or at 0 (none
+    does); chip_smoke.py's edge_state."""
+    st = torch.zeros_like(ts.st)
+    st[:, 0] = 3.0 if every else 0.0
+    return tcp.TState(st=st, rng=ts.rng)
+
+
+# counter starts, then the two states the card's check also steps from:
+# every world resetting in one step, and none
+@pytest.mark.parametrize("start", [0, 2**32 - 64 - 50, "every_world_resets",
+                                   "no_world_resets"])
 def test_step_plain_matches_jax_fused_step(start):
     """K5's plain version against the JAX kernel on a 4-block grid (block
     16 of N = 64), so the SMEM counter carry between blocks is exercised;
     teacher-forced.  In the second case the counter starts 50 short of 2^32
-    and wraps during the run."""
+    and wraps during the run; the last two take one step from
+    ``_edge_state``.  The done flags, episode words and counter hold
+    exactly, the state within STEP_TOL: the interpreted JAX kernel rounds
+    a reset's draw differently by up to an ulp."""
     n = 64
-    t_ts, t_cnt = tcp.init_packed(n, start, device=CPU)
+    edge = isinstance(start, str)
+    t_ts, t_cnt = tcp.init_packed(n, 0 if edge else start, device=CPU)
+    if edge:
+        t_ts = _edge_state(t_ts, start == "every_world_resets")
     cnt0 = int(t_cnt)
     j_step_k = jax.jit(lambda g, r, c, a: jcp.fused_step(g, r, c, a, block=16, interpret=True))
     rs = np.random.RandomState(5)
     resets = 0
-    for t in range(40):
+    for t in range(1 if edge else 40):
         acts = rs.randint(0, 2, size=(n, 1)).astype(np.int32)
         j_grid, j_rng = _j_packed(t_ts)
         j_cnt = jnp.asarray(np.uint32(int(t_cnt)).view(np.int32))
@@ -144,6 +163,9 @@ def test_step_plain_matches_jax_fused_step(start):
         _assert_packed(t_ts, j_grid, j_rng, f"t={t}")
         t_ts = tcp.TState(st=torch.from_numpy(np.array(j_grid).T.copy()), rng=t_ts.rng)
         resets += int(t_done.sum())
+    if edge:
+        assert resets == (n if start == "every_world_resets" else 0)
+        return
     assert resets > n
     assert (int(t_cnt) < cnt0) == (start > 0)
 
@@ -191,6 +213,30 @@ def test_pack_unpack_and_action_stream_match_jax():
         j_w, j_a = jcp.action_lcg_next(j_w)
         np.testing.assert_array_equal(t_w.numpy(), np.asarray(j_w))
         np.testing.assert_array_equal(t_a.numpy(), np.asarray(j_a))
+
+
+def test_step_scan_words_are_cached_per_device_and_stream():
+    """The step kernels' scan words (``ops._build.step_scan``, shared by K5,
+    K7 and K9) on the CPU device: zero, grown for a larger N, the same
+    buffer again for a smaller N on the same key, and a buffer of its own
+    for another stream."""
+    saved = dict(_build._STEP_SCAN)
+    _build._STEP_SCAN.clear()
+    try:
+        # two 64-bit head words, then one a tile of at least 256 envs
+        assert [_build.step_scan_ints(n) for n in (1, 256, 257, 1 << 20)] == [6, 6, 8, 8196]
+        small = _build.step_scan(100, CPU, 7)
+        assert small.dtype == torch.int32 and small.numel() == 6 and not small.any()
+        big = _build.step_scan(100_000, CPU, 7)
+        assert big.numel() == _build.step_scan_ints(100_000) > small.numel()
+        assert not big.any()
+        assert _build.step_scan(129, CPU, 7) is big
+        other = _build.step_scan(129, CPU, 8)
+        assert other is not big and other.numel() == 6 and not other.any()
+        assert set(_build._STEP_SCAN) == {(0, 7), (0, 8)}
+    finally:
+        _build._STEP_SCAN.clear()
+        _build._STEP_SCAN.update(saved)
 
 
 def test_wrappers_check_their_inputs():
