@@ -1,5 +1,6 @@
-// Hanabi kernels for Hopper (sm_90a), 2-player configs, bound through a
-// plain C interface and loaded with ctypes (ops/hanabi.py).
+// Hanabi kernels for Hopper (sm_90a): the step and rollout for 2-player
+// configs, the legal-move mask for every config; bound through a plain C
+// interface and loaded with ctypes (ops/hanabi.py).
 //
 // K3 `hk_step_kernel` replaces the per-step Pallas kernel
 //   madrona_rl_envs_playground_tpu/ops/hanabi_megakernel.py::_build_kernel
@@ -35,9 +36,14 @@
 //   block.  Instantiated for the 2-player configs full, small and
 //   very_small (<5, 5>, <2, 5>, <1, 5>); other configs are refused with
 //   ERR_BAD_CONFIG.
-// K11 `hk_mask_kernel` replaces ops/hanabi_pallas.py::_mask_kernel
+// K11 `hk_mask_kernel<P>` replaces ops/hanabi_pallas.py::_mask_kernel
 //   (legal_moves_pallas): every seat's legal-move mask from the hand cards,
-//   hand sizes and info tokens, one thread per (world, seat).
+//   hand sizes and info tokens, for any game of JAX's Env (2 to 5 players
+//   instantiated, any other count read at run time; up to 64 moves).  A
+//   block stages a tile of at most 128 worlds' inputs in shared memory,
+//   builds each player's colour and rank sets once, each seat's moves as a
+//   64-bit word, and writes the tile's mask bytes as coalesced 16-byte
+//   words.
 //
 // Semantics: envs/hanabi.py of both packages, with the reference's two
 // quirks: the card-knowledge section broadcasts plausible bit `offset` over
@@ -83,7 +89,8 @@
 // Exactness.  The only float work is the draw position int32(f32(size) *
 // u): u = (word & 0xFFFFFF) * 2^-24 is exact, __fmul_rn rounds the product
 // once and __float2int_rz truncates, as the JAX code's float32 multiply and
-// astype(int32) do.  Every / and % has non-negative operands.
+// astype(int32) do.  Every / and % of K3 and K4 has non-negative operands;
+// K11 floors its own, as JAX's // and % do.
 //
 // What bounds them on an H100.  K3 moves 552 B of state in and out per
 // world, reads the stale seat's 803 B of obs / own / mask and writes both
@@ -98,7 +105,10 @@
 // one refreshed seat's closed-form sum), so operations bound it; in
 // practice the grid-wide sync and the scan of the block counts each step,
 // and the latency of a world's dependent loads, take most of its time.
-// K11 reads 52 B and writes 40 B per world.
+// K11 reads 4 (P H + P + 1) B and writes P A B per world (92 B in the full
+// 2-player config, 344 B with 5 players) against some tens of integer
+// operations a seat, so bytes bound it; below about a million worlds the
+// launch and the ramp of device memory take much of its time.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -151,7 +161,7 @@ __host__ __device__ constexpr int copies(int r, int R) { return r == 0 ? 3 : (r 
 
 // The sizes a kernel reads: compile-time constants in K4's instantiations
 // (<C_, R_> > 0: the section loops unroll and / and % by R fold), the
-// config's at run time in K3 and K11 (<0, 0>).
+// config's at run time in K3 (<0, 0>).
 template <int C_, int R_>
 struct Dims {
   int C, R, CR;
@@ -1184,19 +1194,175 @@ __global__ void __launch_bounds__(THREADS, 1) hk_rollout_kernel(HK_ROLLOUT_PARAM
 
 // ---- K11 --------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-hk_mask_kernel(const Cfg c, const int32_t* __restrict__ cards, const int32_t* __restrict__ size,
-               const int32_t* __restrict__ info, bool* __restrict__ out, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // (world, seat)
-  if (i >= N * P) return;
-  const int n = i / P, a = i % P;
-  const int32_t* partner = cards + ((size_t)n * P + (a + 1) % P) * H;
-  int pc[H];
+// K11's config, a flat array of ints in this order from
+// ops/hanabi.py::_mask_cfg: players, hand size, colours, ranks, moves and
+// info tokens at most.  Any game of JAX's Env with a player and a rank.
+struct MaskCfg {
+  int P, H, C, R, A, max_info;
+};
+constexpr int MASK_CFG_INTS = 6;
+static_assert(sizeof(MaskCfg) == MASK_CFG_INTS * sizeof(int),
+              "MaskCfg is read as a flat int array");
+constexpr int MASK_THREADS = 256;
+constexpr int MASK_WORLDS = 128;       // worlds a tile at most, a multiple of 16
+constexpr int MASK_SMEM = 48 * 1024;   // a tile's shared bytes at most (no opt-in)
+
+// The hand size of a game of `players` (envs/hanabi.py).
+__host__ __device__ constexpr int hand_of(int players) { return players < 4 ? 5 : 4; }
+
+// Returns false outside what K11 holds: a seat's moves in one 64-bit word,
+// a world in shared memory, and every value a shift or index below reads.
+bool make_mask_cfg(const int* in, int n, MaskCfg* m) {
+  if (n != MASK_CFG_INTS) return false;
+  std::memcpy(m, in, sizeof(MaskCfg));
+  if (m->P < 1 || m->H < 2 || m->C < 0 || m->R < 1 || m->A > 64) return false;
+  return (long long)m->A == 2LL * m->H + (long long)(m->P - 1) * ((long long)m->C + m->R);
+}
+
+// A world's shared bytes: its cards, hand sizes and info tokens, then two
+// 64-bit sets per player (each seat's 64-bit moves later take the cards'
+// room, H >= 2).  Within A <= 64 a world takes at most 2,816 B, so a tile of
+// 16 worlds always fits MASK_SMEM.
+int mask_world_bytes(const MaskCfg& m) { return 4 * m.P * m.H + 4 * m.P + 4 + 16 * m.P; }
+int mask_tile_worlds(const MaskCfg& m) {
+  const int w = MASK_SMEM / mask_world_bytes(m) / 16 * 16;
+  return w < MASK_WORLDS ? w : MASK_WORLDS;
+}
+
+// `count` int32 from global memory into shared memory, consecutive threads
+// on consecutive words: as 16-byte vectors where `src` starts on a 16-byte
+// boundary (the wrapper accepts 4-byte-aligned views), else one int each.
+// K11's copy and store loops stay rolled (`unroll 1`): unrolled, ptxas
+// spilled in two instantiations and the kernel ran slower (PERF.md §6).
+__device__ __forceinline__ void stage(int32_t* dst, const int32_t* __restrict__ src, int count) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    done = count & ~3;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < done / 4; i += MASK_THREADS)
+      reinterpret_cast<int4*>(dst)[i] = __ldg(reinterpret_cast<const int4*>(src) + i);
+  }
+#pragma unroll 1
+  for (int i = done + threadIdx.x; i < count; i += MASK_THREADS) dst[i] = __ldg(src + i);
+}
+
+// Floor division of n in [0, 2^31) by a divisor d >= 1 fixed for a launch:
+// n * magic >> shift, magic = ceil(2^shift / d) and shift = 31 + ceil(log2
+// d), so that 2^shift <= magic * d <= 2^shift + 2^ceil(log2 d), which makes
+// the quotient exact for every such n (Granlund and Montgomery, "Division by
+// invariant integers using multiplication", 1994, theorem 4.2).  A few
+// instructions where `/` by a run-time divisor takes about twenty.
+struct Divider {
+  unsigned long long magic;
+  int shift;
+};
+inline Divider make_divider(int d) {
+  const int l = d > 1 ? 32 - __builtin_clz((unsigned)(d - 1)) : 0;
+  return {((1ull << (31 + l)) + d - 1) / d, 31 + l};
+}
+__device__ __forceinline__ int quotient(int n, const Divider& by) {
+  return (int)(((unsigned long long)n * by.magic) >> by.shift);
+}
+
+// Four bits to four 0/1 bytes, bit k to byte k.
+__device__ __forceinline__ uint32_t spread4(uint32_t nibble) {
+  return (nibble * 0x00204081u) & 0x01010101u;
+}
+
+// Every seat's legal moves ([N, P, A] bool) from the hand cards [N, P, H],
+// hand sizes [N, P] and info tokens [N], as _mask_kernel and
+// envs/hanabi.py::_mask_seat compute them for every int32 input: a card
+// shows colour floor(card / R) where that lies in [0, C) and rank
+// floor_mod(card, R); dead slots are scanned too.  A block owns a tile of W
+// contiguous worlds, whose inputs and output are contiguous runs: it stages
+// the inputs in shared memory, builds each player's colour and rank sets
+// once, then each seat's moves as one 64-bit word (discard, play, then each
+// partner's colours and ranks at their offsets), and writes the tile's W * P
+// * A bytes as 16-byte words, consecutive threads on consecutive words:
+// word k is bits 16k..16k+15 of the seats' words laid end to end, spread to
+// bytes.  NP > 0: P = NP and H = hand_of(NP) are compile-time (the card and
+// partner loops unroll); NP = 0 reads both from the config.
+template <int NP>
+__global__ void __launch_bounds__(MASK_THREADS)
+hk_mask_kernel(const MaskCfg m, const Divider by_rank, const Divider by_moves,
+               const int32_t* __restrict__ cards, const int32_t* __restrict__ size,
+               const int32_t* __restrict__ info, bool* __restrict__ out, int N, int W) {
+  extern __shared__ __align__(16) unsigned char mask_smem[];
+  const int P = NP > 0 ? NP : m.P, H = NP > 0 ? hand_of(NP) : m.H;
+  const int n0 = blockIdx.x * W, worlds = min(W, N - n0), rows = worlds * P;
+  int32_t* s_cards = reinterpret_cast<int32_t*>(mask_smem);         // [W * P * H]
+  int32_t* s_size = s_cards + W * P * H;                            // [W * P]
+  int32_t* s_info = s_size + W * P;                                 // [W]
+  uint64_t* s_sets = reinterpret_cast<uint64_t*>(s_info + W);       // [W * P] x {colours, ranks}
+  uint64_t* s_moves = reinterpret_cast<uint64_t*>(mask_smem);       // [W * P], over the cards
+  stage(s_cards, cards + (size_t)n0 * P * H, rows * H);
+  stage(s_size, size + (size_t)n0 * P, rows);
+  stage(s_info, info + n0, worlds);
+  __syncthreads();
+  for (int q = threadIdx.x; q < rows; q += MASK_THREADS) {  // (world, player)
+    uint64_t colors = 0, ranks = 0;
 #pragma unroll
-  for (int h = 0; h < H; ++h) pc[h] = partner[h];
-  const uint32_t bits = legal_bits<0, 0>(c, size[i], pc, info[n]);
-  bool* o = out + (size_t)i * c.A;
-  for (int k = 0; k < c.A; ++k) o[k] = (bits >> k) & 1u;
+    for (int h = 0; h < H; ++h) {
+      // floor division and modulo: for card < 0, floor(card / R) is
+      // ~floor(~card / R) and the rank R - 1 - ~card % R
+      const int card = s_cards[q * H + h], n = card < 0 ? ~card : card;
+      const int nq = quotient(n, by_rank), nr = n - nq * m.R;
+      const int col = card < 0 ? ~nq : nq, rank = card < 0 ? m.R - 1 - nr : nr;
+      if ((unsigned)col < (unsigned)m.C) colors |= 1ull << col;
+      ranks |= 1ull << rank;
+    }
+    s_sets[2 * q] = colors;
+    s_sets[2 * q + 1] = ranks;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < rows; q += MASK_THREADS) {  // (world, seat)
+    const int n = q / P, a = q - n * P, hs = s_size[q], tokens = s_info[n];
+    const uint64_t live = hs <= 0 ? 0ull : hs >= H ? (1ull << H) - 1 : (1ull << hs) - 1;
+    uint64_t moves = (tokens < m.max_info ? live : 0ull) | live << H;
+    if (tokens > 0) {
+      const uint64_t* sets = s_sets + 2 * n * P;
+      int t = a;
+#pragma unroll
+      for (int o = 1; o < P; ++o) {
+        t = t + 1 == P ? 0 : t + 1;
+        moves |= sets[2 * t] << (2 * H + (o - 1) * m.C) |
+                 sets[2 * t + 1] << (2 * H + (P - 1) * m.C + (o - 1) * m.R);
+      }
+    }
+    s_moves[q] = moves;  // the cards were last read before the barrier above
+  }
+  __syncthreads();
+  // the tile's bytes start on a 16-byte boundary where `out` does: W * P * A
+  // is a multiple of 16
+  const int bytes = rows * m.A;
+  uint8_t* dst = reinterpret_cast<uint8_t*>(out) + (size_t)n0 * P * m.A;
+  const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+#pragma unroll 1
+  for (int w = threadIdx.x; w < (bytes + 15) / 16; w += MASK_THREADS) {
+    const int b = 16 * w;
+    int r = quotient(b, by_moves);
+    const int off = b - r * m.A;
+    uint64_t x = s_moves[r] >> off;
+    for (int k = m.A - off; k < 16 && ++r < rows; k += m.A) x |= s_moves[r] << k;
+    const uint32_t x16 = (uint32_t)x;
+    if (vec && b + 16 <= bytes) {  // streamed: no later read of the mask here
+      __stcs(reinterpret_cast<uint4*>(dst + b),
+             make_uint4(spread4(x16 & 15u), spread4(x16 >> 4 & 15u), spread4(x16 >> 8 & 15u),
+                        spread4(x16 >> 12 & 15u)));
+    } else {  // the ragged end of the last tile, or an unaligned `out`
+      for (int j = 0; j < 16 && b + j < bytes; ++j) dst[b + j] = (x16 >> j) & 1u;
+    }
+  }
+}
+
+template <int NP>
+int launch_mask(const MaskCfg& m, const int32_t* cards, const int32_t* size, const int32_t* info,
+                bool* out, int N, void* stream) {
+  const int W = mask_tile_worlds(m);
+  hk_mask_kernel<NP><<<(N + W - 1) / W, MASK_THREADS, W * mask_world_bytes(m),
+                       (cudaStream_t)stream>>>(m, make_divider(m.R), make_divider(m.A), cards,
+                                               size, info, out, N, W);
+  return (int)cudaGetLastError();
 }
 
 // K4's instantiations: the 2-player configs of envs/hanabi.py's CONFIGS.
@@ -1321,13 +1487,19 @@ int hk_rollout(const int* cfg, int cfg_ints, const int32_t* st_in, const int8_t*
 
 int hk_legal(const int* cfg, int cfg_ints, const int32_t* cards, const int32_t* size,
              const int32_t* info, bool* out, int N, int device, void* stream) {
-  Cfg c;
-  if (!make_cfg(cfg, cfg_ints, &c)) return ERR_BAD_CONFIG;
+  MaskCfg m;
+  if (!make_mask_cfg(cfg, cfg_ints, &m)) return ERR_BAD_CONFIG;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (N * P + THREADS - 1) / THREADS;
-  hk_mask_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(c, cards, size, info, out, N);
-  return (int)cudaGetLastError();
+  // the games of 2 to 5 players, each with its own compile-time shape; any
+  // other player count (JAX's Env also plays 6 and 7) reads it at run time
+  if (m.H == hand_of(m.P)) switch (m.P) {
+      case 2: return launch_mask<2>(m, cards, size, info, out, N, stream);
+      case 3: return launch_mask<3>(m, cards, size, info, out, N, stream);
+      case 4: return launch_mask<4>(m, cards, size, info, out, N, stream);
+      case 5: return launch_mask<5>(m, cards, size, info, out, N, stream);
+    }
+  return launch_mask<0>(m, cards, size, info, out, N, stream);
 }
 
 const char* hk_error_string(int err) {

@@ -1,9 +1,9 @@
 """Hanabi step, rollout and legal-move kernels and their plain PyTorch versions.
 
 Counterpart of ``madrona_rl_envs_playground_tpu/ops/hanabi_megakernel.py``
-and ``ops/hanabi_pallas.py``.  Three kernels, in ``csrc/hanabi.cu``, for the
-2-player configs (``fused_supported``; games of more players run on the
-plain env):
+and ``ops/hanabi_pallas.py``.  Three kernels, in ``csrc/hanabi.cu``: K3 and
+K4 for the 2-player configs (``fused_supported``; games of more players
+step on the plain env), K11 for every config:
 
 * **K3** ``fused_step``: one game step per env (move resolution, the
   random-swap draw, termination, the world-order episode index of each
@@ -22,12 +22,16 @@ plain env):
   outside ``rollout_envelope`` (which holds every state the package's
   functions produce) before launch, and waits for the state to read it;
 * **K11** ``legal_moves``: every seat's legal-move mask from the hand cards,
-  hand sizes and info tokens.
+  hand sizes and info tokens, for any game of JAX's ``Env`` (``_mask_cfg``:
+  2 to 5 players each with a compile-time instantiation, any other count
+  with one that reads it at run time), colour and rank by floor division
+  and modulo for every int32 card id, as JAX's ``//`` and ``%``.
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it runs its plain version (``fused_step_plain``,
 ``fused_rollout_plain``, ``legal_moves_plain``), built on the plain env.
-Each call adds one to ``LAUNCHES[<wrapper name>]``.
+Each call adds one to ``LAUNCHES[<wrapper name>]``; K11's calls count by
+instantiation (``mask_launch_key``).
 
 **Layout** (``TState``).  The game state is one int32 tensor ``st`` of
 ``[ROWS, N]``, the JAX kernel's rows stacked in its order, so a warp's loads
@@ -69,7 +73,9 @@ from ..envs.hanabi import M_DISCARD, M_PLAY, M_REVEAL_C, M_REVEAL_R, Env, State
 from . import _build
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"fused_step": 0, "fused_rollout": 0, "legal_moves": 0}
+LAUNCHES: Dict[str, int] = {"fused_step": 0, "fused_rollout": 0, "legal_moves_2p": 0,
+                            "legal_moves_3p": 0, "legal_moves_4p": 0, "legal_moves_5p": 0,
+                            "legal_moves_other": 0}
 
 # the scalar rows, in the JAX kernel's order (hanabi_megakernel._SCAL_KEYS)
 SCAL_FIELDS = ("deck_size", "info_tokens", "life_tokens", "cur_player", "turns_to_play",
@@ -85,6 +91,12 @@ INFO = SCAL_FIELDS.index("info_tokens")
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def mask_launch_key(env: Env) -> str:
+    """The ``LAUNCHES`` key of K11's instantiation for ``env``:
+    ``hk_mask_kernel<P>`` for 2 to 5 players, ``<0>`` for any other count."""
+    return f"legal_moves_{env.players}p" if 2 <= env.players <= 5 else "legal_moves_other"
 
 
 def fused_supported(env: Env) -> bool:
@@ -556,6 +568,20 @@ def _cfg(env: Env):
     return (ctypes.c_int * len(vals))(*vals), len(vals)
 
 
+def _mask_cfg(env: Env):
+    """What K11 reads (``csrc/hanabi.cu``'s ``MaskCfg``, in its order):
+    players, hand size, colours, ranks, moves and info tokens at most.  Every
+    game JAX's ``Env`` builds with a player and a rank fits: its moves (at
+    most 60) fit K11's 64-bit word."""
+    P, H, C, R, A = env.players, env.hand, env.colors, env.ranks, env.num_actions
+    if P < 1 or R < 1 or C < 0 or A > 64:
+        raise ValueError(f"hk_mask_kernel takes at least one player and one rank, no negative "
+                         f"colour count and at most 64 moves, got {P} players, {C} colours, "
+                         f"{R} ranks and {A} moves")
+    vals = (P, H, C, R, A, env.max_info)
+    return (ctypes.c_int * len(vals))(*vals), len(vals)
+
+
 def _config_key(env: Env) -> tuple:
     return (env.colors, env.ranks, env.max_info, env.max_life, env.players)
 
@@ -663,12 +689,12 @@ def _check_hands(env: Env, hand_cards, hand_size, info_tokens) -> int:
 def _legal_moves_cuda(env: Env, hand_cards, hand_size, info_tokens):
     N = _check_hands(env, hand_cards, hand_size, info_tokens)
     dev = hand_cards.device
-    cfg, lib = _cfg(env), _lib()
+    cfg, lib = _mask_cfg(env), _lib()
     out = torch.empty((N, env.players, env.num_actions), dtype=torch.bool, device=dev)
     rc = lib.hk_legal(*cfg, hand_cards.data_ptr(), hand_size.data_ptr(), info_tokens.data_ptr(),
                       out.data_ptr(), N, dev.index or 0, _stream(dev))
     _raise_on(rc, "hk_mask_kernel")
-    LAUNCHES["legal_moves"] += 1
+    LAUNCHES[mask_launch_key(env)] += 1
     return out
 
 
@@ -704,7 +730,9 @@ def fused_rollout(env: Env, ts: TState, counter: torch.Tensor, act_rng: torch.Te
 def legal_moves(env: Env, hand_cards: torch.Tensor, hand_size: torch.Tensor,
                 info_tokens: torch.Tensor) -> torch.Tensor:
     """Every seat's legal moves ``[N, P, A]`` bool from the hand cards
-    ``[N, P, H]``, hand sizes ``[N, P]`` and info tokens ``[N]`` (int32).
+    ``[N, P, H]``, hand sizes ``[N, P]`` and info tokens ``[N]`` (int32, any
+    values; 4-byte-aligned views are taken), for any config ``_mask_cfg``
+    takes.
 
     K11 on CUDA tensors; the plain version on CPU tensors."""
     if hand_cards.is_cuda:

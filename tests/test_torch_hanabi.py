@@ -11,6 +11,7 @@ kernels run only on the card, where ``chip_smoke.py`` holds them against
 these plain versions.
 """
 
+import itertools
 from types import SimpleNamespace
 
 import jax
@@ -190,18 +191,51 @@ def test_rollout_plain_matches_jax_fused_rollout_one_block():
     assert int(t_dcnt.sum()) > n
 
 
-@pytest.mark.parametrize("config", ["full", "small", "three_players"])
+# K11's envelope: 2 to 5 players, reachable hands (card ids in [0, C*R),
+# sizes 0..H, info 0..max_info) and arbitrary int32 inputs ("wild_")
+MASK_CONFIGS = {"full": jh.CONFIGS["full"], "small": jh.CONFIGS["small"],
+                "three_players": THREE_PLAYERS,
+                "full_4p": dict(jh.CONFIGS["full"], players=4),
+                "full_5p": dict(jh.CONFIGS["full"], players=5)}
+
+
+def wild_hands(rs, n, env):
+    """Arbitrary int32 hand cards, sizes and info tokens: a third of the card
+    ids across int32, the rest around [0, C*R) (negative ones and ones >=
+    C*R among them), the int32 extremes; sizes -1..H+1 and info
+    -1..max_info+1, with the extremes too."""
+    P, H, CR = env.players, env.hand, env.colors * env.ranks
+    i32 = np.iinfo(np.int32)
+    cards = rs.randint(-2 * CR, 3 * CR, size=(n, P, H)).astype(np.int64)
+    wide = rs.rand(n, P, H) < 1 / 3
+    cards[wide] = rs.randint(i32.min, i32.max, size=int(wide.sum()), dtype=np.int64)
+    cards[0, 0, :3] = (i32.min, i32.max, -1)
+    size = rs.randint(-1, H + 2, size=(n, P))
+    size[1, :2] = (i32.min, i32.max)
+    info = rs.randint(-1, env.max_info + 2, size=n)
+    info[2:4] = (i32.min, i32.max)
+    return cards.astype(np.int32), size.astype(np.int32), info.astype(np.int32)
+
+
+@pytest.mark.parametrize("config", ["full", "small", "three_players", "full_4p", "full_5p",
+                                    "wild_full", "wild_full_5p"])
 def test_legal_moves_plain_matches_jax_mask_seat(config):
     """K11's plain version against the JAX env's ``_mask_seat`` for every
     seat, on random hands with dead slots (what ``tests/test_pallas_ops.py``
-    holds the TPU kernel against)."""
-    cfg = THREE_PLAYERS if config == "three_players" else jh.CONFIGS[config]
+    holds the TPU kernel against), and on arbitrary int32 inputs, where
+    colour and rank are floor division and modulo."""
+    wild = config.startswith("wild_")
+    cfg = MASK_CONFIGS[config[5:] if wild else config]
     je, te = jh.Env(**cfg), th.Env(**cfg)
-    n, P, H = 64, te.players, te.hand
+    n, P, H = (256 if wild else 64), te.players, te.hand
     rs = np.random.RandomState(8)
-    cards = rs.randint(0, te.colors * te.ranks, size=(n, P, H)).astype(np.int32)
-    size = rs.randint(0, H + 1, size=(n, P)).astype(np.int32)
-    info = rs.randint(0, te.max_info + 1, size=n).astype(np.int32)
+    if wild:
+        cards, size, info = wild_hands(rs, n, te)
+        assert (cards < 0).any() and (cards >= te.colors * te.ranks).any()
+    else:
+        cards = rs.randint(0, te.colors * te.ranks, size=(n, P, H)).astype(np.int32)
+        size = rs.randint(0, H + 1, size=(n, P)).astype(np.int32)
+        info = rs.randint(0, te.max_info + 1, size=n).astype(np.int32)
     got = tk.legal_moves(te, torch.from_numpy(cards), torch.from_numpy(size),
                          torch.from_numpy(info))
     assert got.dtype == torch.bool and got.shape == (n, P, te.num_actions)
@@ -258,6 +292,28 @@ def test_wrappers_check_their_inputs():
     cards, size, info = tk.hand_inputs(env, ts)
     with pytest.raises(TypeError):
         tk.legal_moves(env, cards.long(), size, info)
+    four = th.Env(**MASK_CONFIGS["full_4p"])
+    ts4, _ = tk.init_packed(four, n, device=CPU)
+    assert tk.legal_moves(four, *tk.hand_inputs(four, ts4)).shape == (n, 4, 38)
+    # K11's config takes every game JAX's Env builds with a player and a
+    # rank; K3's and K4's (_cfg) still only the 2-player ones
+    built = 0
+    for P, C, R in itertools.product(range(1, 9), range(8), range(1, 8)):
+        try:
+            je = jh.Env(colors=C, ranks=R, players=P)
+        except (AssertionError, OverflowError):
+            continue
+        te = th.Env(colors=C, ranks=R, players=P)
+        cfg, ints = tk._mask_cfg(te)
+        assert list(cfg)[:ints] == [P, je.hand, C, R, je.num_actions, je.max_info]
+        if P != 2:
+            with pytest.raises(ValueError, match="2-player"):
+                tk._cfg(te)
+        built += 1
+    assert built > 300
+    for bad in (dict(ranks=0), dict(players=0)):
+        with pytest.raises(ValueError, match="one player and one rank"):
+            tk._mask_cfg(th.Env(**bad))
     assert tk.fused_supported(env) and not tk.fused_supported(th.Env(**THREE_PLAYERS))
 
 
