@@ -9,6 +9,12 @@ works on the whole batch at once (``init_core``, ``transition`` and
   world that is done this step reports the fresh episode's observation;
 * the episode counter is a uint32 that advances by ``sum(done)``; world w of
   the batch is handed index ``counter + (number of done worlds before w)``.
+
+``Simulator`` owns one batch, the counterpart of JAX's ``Simulator`` (the
+reference Manager's analog): plain ``batched_reset``/``batched_step`` on the
+chosen device, with no jit and no sharding.  On the card it steps the plain
+env on CUDA tensors: the general path for every env, as JAX's ``jnp`` route
+is, not a kernel's fallback.
 """
 
 from __future__ import annotations
@@ -79,3 +85,30 @@ def batched_step(env, bstate: BatchState,
                      active=active, reward=reward, done=done)
     return BatchState(env_states=s4, episode_counter=counter2), out
 
+
+class Simulator:
+    """Owns the batched state of ``num_envs`` worlds of one env.
+
+    ``step(actions)`` (int ``[N, P]``, world-major) advances every world and
+    returns the ``StepOutput``; ``reset()`` rebuilds the batch from
+    ``start_episode``.  ``bstate`` and ``last_out`` hold the current state
+    and the latest output."""
+
+    def __init__(self, env, num_envs: int, start_episode: int = 0,
+                 device: DeviceLike = None):
+        self.env = env
+        self.num_envs = num_envs
+        self.device = resolve_device(device)
+        self._start_episode = start_episode
+        self.bstate, self.last_out = batched_reset(env, num_envs, start_episode,
+                                                   device=self.device)
+
+    def step(self, actions: torch.Tensor) -> StepOutput:
+        actions = actions.to(device=self.device, dtype=torch.int32)
+        self.bstate, self.last_out = batched_step(self.env, self.bstate, actions)
+        return self.last_out
+
+    def reset(self) -> StepOutput:
+        self.bstate, self.last_out = batched_reset(self.env, self.num_envs,
+                                                   self._start_episode, device=self.device)
+        return self.last_out

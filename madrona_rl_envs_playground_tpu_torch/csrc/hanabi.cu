@@ -1373,47 +1373,61 @@ bool rollout_config(const Cfg& c) {
          c.max_info + 2 * C <= 127;  // info stays an int8 (see the header)
 }
 
+// The records in shared memory with the fewest slots at which every block
+// is resident at once (hk_rollout_onchip_kernel); else in device memory
+// (hk_rollout_kernel).  Sets the on-chip kernel's dynamic shared memory to
+// what it launches with.
+template <int C, int R>
+int rollout_shape(int N, int device, const void** kernel, int* blocks, int* slots,
+                  size_t* bytes) {
+  *kernel = (const void*)hk_rollout_onchip_kernel<C, R>;
+  *blocks = *slots = 0;
+  *bytes = 0;
+  int sms = 0, optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  for (int k = 1; k <= episode::MAX_ROLLOUT_SLOTS && !*slots; ++k) {
+    const size_t need = (size_t)k * THREADS * Rec<C, R>::STRIDE;
+    if (need + 4096 > (size_t)optin) break;  // the static shared memory beside it
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, *kernel, THREADS, need);
+    if (err != cudaSuccess) return (int)err;
+    const int g = (N + k * THREADS - 1) / (k * THREADS);
+    if (g <= per_sm * sms) *blocks = g, *slots = k, *bytes = need;
+  }
+  if (!*slots) {
+    *kernel = (const void*)hk_rollout_kernel<C, R>;
+    int max_blocks = 0;
+    err = episode::resident_blocks(*kernel, device, &max_blocks);
+    if (err != cudaSuccess) return (int)err;
+    episode::split(N, max_blocks, blocks, slots);
+    if (*slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
+  }
+  return 0;
+}
+
 template <int C, int R>
 int launch_rollout(const Cfg& c, const int32_t* st_in, const int8_t* obs_in,
                    const int8_t* own_in, const bool* mask_in, const int32_t* arng_in,
                    const int64_t* cnt_in, int32_t* st, int32_t* arng, int32_t* dcnt,
                    int32_t* chk, int64_t* cnt_out, uint8_t* carry, int* scratch, int N, int T,
                    int device, void* stream) {
-  // the records in shared memory with the fewest slots at which every block
-  // is resident at once; else in device memory
-  const void* kernel = (const void*)hk_rollout_onchip_kernel<C, R>;
-  int sms = 0, optin = 0, blocks = 0, slots = 0;
+  const void* kernel = nullptr;
+  int blocks = 0, slots = 0;
   size_t bytes = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  for (int k = 1; k <= episode::MAX_ROLLOUT_SLOTS && !slots; ++k) {
-    const size_t need = (size_t)k * THREADS * Rec<C, R>::STRIDE;
-    if (need + 4096 > (size_t)optin) break;  // the static shared memory beside it
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, need);
-    if (err != cudaSuccess) return (int)err;
-    const int g = (N + k * THREADS - 1) / (k * THREADS);
-    if (g <= per_sm * sms) blocks = g, slots = k, bytes = need;
-  }
-  if (!slots) {
-    kernel = (const void*)hk_rollout_kernel<C, R>;
-    int max_blocks = 0;
-    err = episode::resident_blocks(kernel, device, &max_blocks);
-    if (err != cudaSuccess) return (int)err;
-    episode::split(N, max_blocks, &blocks, &slots);
-    if (slots > episode::MAX_ROLLOUT_SLOTS) return episode::ERR_TOO_MANY_ENVS;
-  }
+  const int rc = rollout_shape<C, R>(N, device, &kernel, &blocks, &slots, &bytes);
+  if (rc) return rc;
   void* args[] = {(void*)&c,     (void*)&st_in,   (void*)&obs_in,   (void*)&own_in,
                   (void*)&mask_in, (void*)&arng_in, (void*)&cnt_in, (void*)&st,
                   (void*)&arng,  (void*)&dcnt,    (void*)&chk,      (void*)&cnt_out,
                   (void*)&carry, (void*)&scratch, (void*)&N,        (void*)&T,
                   (void*)&slots};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args, bytes,
-                                    (cudaStream_t)stream);
+  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args,
+                                                      bytes, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1482,6 +1496,29 @@ int hk_rollout(const int* cfg, int cfg_ints, const int32_t* st_in, const int8_t*
   HK_ROLLOUT(2, 5)
   HK_ROLLOUT(1, 5)
 #undef HK_ROLLOUT
+  return ERR_BAD_CONFIG;
+}
+
+// Which K4 kernel hk_rollout launches for N worlds of the config on the
+// device: *onchip = 1 for hk_rollout_onchip_kernel, 0 for hk_rollout_kernel.
+int hk_rollout_onchip(const int* cfg, int cfg_ints, int N, int device, int* onchip) {
+  Cfg c;
+  if (!make_cfg(cfg, cfg_ints, &c)) return ERR_BAD_CONFIG;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const void* kernel = nullptr;
+  int blocks = 0, slots = 0;
+  size_t bytes = 0;
+#define HK_ONCHIP(C, R)                                                               \
+  if (rollout_config<C, R>(c)) {                                                      \
+    const int rc = rollout_shape<C, R>(N, device, &kernel, &blocks, &slots, &bytes);  \
+    *onchip = kernel == (const void*)hk_rollout_onchip_kernel<C, R>;                  \
+    return rc;                                                                        \
+  }
+  HK_ONCHIP(5, 5)
+  HK_ONCHIP(2, 5)
+  HK_ONCHIP(1, 5)
+#undef HK_ONCHIP
   return ERR_BAD_CONFIG;
 }
 

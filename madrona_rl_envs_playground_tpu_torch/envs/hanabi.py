@@ -138,6 +138,11 @@ class Env(EnvBase):
         self.state_size = self.obs_size + H * self.bits_per_card
         self.num_actions = 2 * H + (P - 1) * C + (P - 1) * R
         assert self.num_actions <= NUM_MOVES_MAX
+        # a card's plausible set is a uint32 bit mask (JAX's Env raises the
+        # same error here, from np.uint32)
+        if self.bits_per_card > 32:
+            raise OverflowError(f"colors x ranks = {self.bits_per_card} card kinds do not "
+                                "fit the uint32 plausible mask (at most 32)")
 
         # discard encoding: bit -> (card id, threshold)
         ids, thr = [], []

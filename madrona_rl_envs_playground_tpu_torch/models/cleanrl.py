@@ -90,3 +90,16 @@ def load_flax_params(net: CleanRLNetwork, params: Mapping) -> None:
                                      f"does not fit {layer}")
                 layer.weight.copy_(k.t())
                 layer.bias.copy_(b)
+
+
+def flax_params(net: CleanRLNetwork) -> dict:
+    """The inverse of ``load_flax_params``: ``net``'s weights as numpy
+    arrays in flax's layout and names (``{"params": {"actor"|"critic":
+    {"Dense_i": {"kernel": [in, out], "bias": [out]}}}}``)."""
+    towers = {}
+    for tower_name in ("actor", "critic"):
+        towers[tower_name] = {
+            f"Dense_{i}": {"kernel": layer.weight.detach().cpu().numpy().T.copy(),
+                           "bias": layer.bias.detach().cpu().numpy().copy()}
+            for i, layer in enumerate(getattr(net, tower_name).layers)}
+    return {"params": towers}

@@ -203,9 +203,12 @@ def action_from_mask(w: torch.Tensor, mask: torch.Tensor):
 
 
 def active_mask(env: Env, ts: TState) -> torch.Tensor:
-    """[N, A] bool: the mask row of the seat to act."""
+    """[N, A] bool: the legal moves of the seat to act, from the state, as
+    K4 and JAX's rollout kernel draw them (the mask buffer of a state K4
+    returned is the launch-time one)."""
     cur = ts.st[row_offsets(env)["scal"] + CUR].long()
-    return ts.mask[torch.arange(ts.num_envs, device=ts.st.device), cur]
+    legal = legal_moves_plain(env, *hand_inputs(env, ts))
+    return legal[torch.arange(ts.num_envs, device=ts.st.device), cur]
 
 
 # ---- plain versions --------------------------------------------------------
@@ -541,6 +544,8 @@ def _lib() -> ctypes.CDLL:
         lib.hk_rollout.argtypes = [p, i] + [p] * 13 + [i, i, i, p]
         lib.hk_rollout.restype = i
         lib.hk_carry_bytes.argtypes = [p, i]
+        lib.hk_rollout_onchip.argtypes = [p, i, i, i, p]
+        lib.hk_rollout_onchip.restype = i
         lib.hk_carry_bytes.restype = i
         lib.hk_legal.argtypes = [p, i] + [p] * 4 + [i, i, p]
         lib.hk_legal.restype = i
@@ -672,6 +677,21 @@ def _fused_rollout_cuda(env: Env, ts: TState, counter: torch.Tensor, act_rng: to
     _raise_on(rc, "hk_rollout_kernel")
     LAUNCHES["fused_rollout"] += 1
     return TState(st=st, obs=ts.obs, own=ts.own, mask=ts.mask), arng, cnt, dcnt, chk
+
+
+def rollout_kernel(env: Env, num_envs: int, device: DeviceLike = None) -> str:
+    """The K4 kernel ``fused_rollout`` launches for ``num_envs`` envs of
+    ``env`` on the card ``device``, by shape: ``hk_rollout_onchip_kernel``
+    where the resident grid holds every env's records in shared memory, else
+    ``hk_rollout_kernel``, whose records lie in device memory."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("the rollout kernels run on a CUDA device")
+    onchip = ctypes.c_int(0)
+    rc = _lib().hk_rollout_onchip(*_cfg(env), int(num_envs), dev.index or 0,
+                                  ctypes.byref(onchip))
+    _raise_on(rc, "hk_rollout_onchip")
+    return "hk_rollout_onchip_kernel" if onchip.value else "hk_rollout_kernel"
 
 
 def _check_hands(env: Env, hand_cards, hand_size, info_tokens) -> int:

@@ -24,8 +24,11 @@ normalisation, every loss term and the metrics are means over the active
 slots only.  Their logits are masked to the legal moves, and their critic
 reads ``state_obs`` where it is not the obs (``env.state_is_obs``).
 
-The JAX ``lax.scan`` loops become Python loops.  Checkpointing and the mesh
-come with later slices.
+The JAX ``lax.scan`` loops become Python loops.  ``run`` drives updates and
+logs their metrics; ``save``/``load`` checkpoint the network, Adam and the
+sampler's generator state (JAX's ``key``) and, by default, the batched env
+state, so a restore resumes mid-stream exactly.  The mesh comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..core.batch import batched_reset
 from ..device import DeviceLike, resolve_device
 from ..models.cleanrl import CleanRLNetwork
 from ..models.common import dist_entropy, dist_log_prob, dist_sample
+from ..utils.checkpoint import load_pytree, save_pytree
 from .cleanrl_ppo import Rollout, active_masked_gae, plain_gae
 from .fused_collect import make_fused_collect
 from .optim import clip_grad_global_norm_
@@ -296,3 +300,66 @@ class SelfPlayPPO:
         pg, vl, ent, kl = self._update(chunks)
         self.state = {"bstate": bstate, "out": out}
         return {"pg_loss": pg, "v_loss": vl, "entropy": ent, "approx_kl": kl, **stats}
+
+    # ---- checkpointing -------------------------------------------------
+    def save(self, path: str, with_env_state: bool = True) -> None:
+        """The network, Adam and the sampler's generator state always; by
+        default also the batched env state and the last output, so a load
+        resumes mid-stream exactly.  ``with_env_state=False`` writes a
+        policy-only checkpoint, loadable at any ``num_envs``."""
+        blob = {"net": self.net.state_dict(), "opt": self.opt.state_dict(),
+                "sample_gen": self.sample_gen.get_state()}
+        if with_env_state:
+            blob["bstate"] = _to_tree(self.state["bstate"])
+            blob["out"] = _to_tree(self.state["out"])
+        save_pytree(path, blob)
+
+    def load(self, path: str) -> None:
+        """Restore a ``save``.  Env state saved at another batch size is
+        dropped: a policy-only restore."""
+        blob = load_pytree(path)
+        self.net.load_state_dict(blob["net"])
+        self.opt.load_state_dict(blob["opt"])
+        self.sample_gen.set_state(blob["sample_gen"])
+        if "bstate" in blob and _batch_size(blob["bstate"]) == self.num_envs:
+            self.state = {k: _from_tree(self.state[k], blob[k], self.device)
+                          for k in ("bstate", "out")}
+
+    # ------------------------------------------------------------------
+    def run(self, num_updates: int, log_every: int = 0, logger=None):
+        """``num_updates`` updates; every ``log_every`` updates the metrics
+        go to ``logger`` as ``selfplay/<key>`` at step ``u + 1``, or are
+        printed when there is no logger.  Returns the last metrics."""
+        metrics = None
+        for u in range(num_updates):
+            metrics = self.train_step()
+            if log_every and (u + 1) % log_every == 0:
+                # sorted, as JAX's metrics come back from its jit
+                m = {k: float(metrics[k]) for k in sorted(metrics)}
+                if logger is not None:
+                    for k, v in m.items():
+                        logger.add_scalar(f"selfplay/{k}", v, u + 1)
+                else:
+                    print(f"update {u + 1}: {m}")
+        return metrics
+
+
+def _to_tree(x):
+    """Dataclasses of tensors -> dicts (what ``weights_only`` loads)."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: _to_tree(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    return x
+
+
+def _from_tree(like, tree, device):
+    """The inverse of ``_to_tree``, shaped after ``like``."""
+    if dataclasses.is_dataclass(like):
+        return type(like)(**{f.name: _from_tree(getattr(like, f.name), tree[f.name], device)
+                             for f in dataclasses.fields(like)})
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _batch_size(bstate_tree) -> int:
+    """The batch size of a saved ``BatchState``: every env-state field has
+    the env axis first."""
+    return int(next(iter(bstate_tree["env_states"].values())).shape[0])

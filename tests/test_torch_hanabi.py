@@ -491,3 +491,59 @@ def test_collector_matches_batched_step():
     for f in bstate.env_states.__dataclass_fields__:
         assert torch.equal(getattr(back.env_states, f), getattr(bstate.env_states, f)), f
     assert not make_fused_collect(th.Env(**THREE_PLAYERS), n, device=CPU).kernel
+
+
+@pytest.mark.parametrize("players", [2, 3, 4, 5])
+def test_env_refuses_exactly_the_configs_jax_refuses(players):
+    """Colours and ranks 1..7: either both constructors raise the same
+    exception type, or both build games of the same sizes.  Both raise on
+    C * R > 32 cards (OverflowError: the uint32 plausible mask) and on more
+    than NUM_MOVES_MAX moves (AssertionError: 7 x 7 with 5 players)."""
+    refused = 0
+    for colors, ranks in itertools.product(range(1, 8), repeat=2):
+        cfg = dict(colors=colors, ranks=ranks, players=players)
+        got = {}
+        for side, make in (("jax", jh.Env), ("port", th.Env)):
+            try:
+                env = make(**cfg)
+            except Exception as e:  # noqa: BLE001 - the type is compared
+                got[side] = type(e)
+            else:
+                got[side] = (env.obs_size, env.state_size, env.num_actions, env.max_cards)
+        assert got["jax"] == got["port"], (cfg, got)
+        refused += isinstance(got["port"], type)
+        if colors * ranks > 32:
+            assert got["port"] in (OverflowError, AssertionError), cfg
+    # (5,7), (6,6), (6,7), (7,5), (7,6), (7,7) for every player count
+    assert refused == 6
+
+
+def test_rollout_plain_chained_matches_jax():
+    """A second rollout from the first one's output, whose obs / own / mask
+    are the launch-time buffers: K4's plain version draws the acting seat's
+    move from the state, as JAX's kernel (and K4) do, not from the stale
+    mask buffer."""
+    env_j, env_t = jh.Env(**jh.CONFIGS["small"]), th.Env(**th.CONFIGS["small"])
+    n, T = 8, 12
+    ts, cnt = tk.init_packed(env_t, n, device=CPU)
+    w = tk.init_action_rng(n, seed=5, device=CPU)
+    d, j_cnt = _j_init_packed(env_j, n)
+    j_w = jk.init_action_rng(n, seed=5)
+    run = jax.jit(lambda d_, c_, w_: jk.fused_rollout(env_j, d_, c_, w_, T, block=n,
+                                                      interpret=True))
+    for call in range(2):
+        d, j_cnt, j_w, j_dcnt, j_chk = run(d, j_cnt, j_w)
+        ts, w, cnt, t_dcnt, t_chk = tk.fused_rollout(env_t, ts, cnt, w, T)
+        _assert_packed(env_t, ts, d, f"call {call}")
+        np.testing.assert_array_equal(w.numpy(), np.asarray(j_w))
+        np.testing.assert_array_equal(t_dcnt.numpy(), np.asarray(j_dcnt))
+        np.testing.assert_array_equal(t_chk.numpy(), np.asarray(j_chk))
+        assert int(cnt) == int(j_cnt)
+
+
+def test_rollout_kernel_is_chosen_on_the_card():
+    """K4's two kernels (records in shared memory, or in device memory) are
+    chosen by N in ``hk_rollout`` on the card, which ``rollout_kernel``
+    asks; the CPU has no such choice, and asking for it there is refused."""
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.rollout_kernel(th.Env(**th.CONFIGS["full"]), 1024, "cpu")
