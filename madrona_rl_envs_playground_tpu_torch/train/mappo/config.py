@@ -12,8 +12,8 @@ its plain version on the CPU.  The runner takes the device instead.  Nor are
 the flags of what the port does not run yet, which nothing here would read:
 ``use_naive_recurrent_policy``, ``recurrent_N`` and ``data_chunk_length``
 (the GRU), the
-render settings beyond ``use_render``, ``save_interval``,
-``n_eval_rollout_threads`` and ``weight_decay`` (AdamW; nothing sets it).
+render settings beyond ``use_render``, ``n_eval_rollout_threads`` and
+``weight_decay`` (AdamW; nothing sets it).
 ``COLAB_RECIPE`` is the reference Colab's configuration on Overcooked2
 ``simple`` (``scripts/mappo_train.py``), written once here.
 """
@@ -76,13 +76,15 @@ class MAPPOConfig:
     use_policy_active_masks: bool = True
     # run
     seed: int = 1
+    # with a run_dir, MAPPORunner.run saves every save_interval updates
+    save_interval: int = 1
     log_interval: int = 5
     # periodic deterministic eval during training (runner.evaluate);
     # eval_episodes is a total episode budget spread over the training envs
     use_eval: bool = False
     eval_interval: int = 25
     eval_episodes: int = 32
-    # render after training (ROADMAP item 14; the script raises on it)
+    # render after training (ROADMAP item 14b; the script raises on it)
     use_render: bool = False
 
     def model_config(self) -> ModelConfig:
@@ -112,6 +114,7 @@ def get_config() -> argparse.ArgumentParser:
     # env selection flags from the reference trainer surface
     p.add_argument("--env_name", type=str, default="overcooked")
     p.add_argument("--over_layout", type=str, default="simple")
+    p.add_argument("--run_dir", type=str, default="runs/mappo")
     p.add_argument("--model_dir", type=str, default=None)
     return p
 

@@ -16,13 +16,24 @@ card through its step kernel (K1 for Overcooked, K9 for Acrobot) and on the
 CPU through the kernel's plain version; envs without a kernel get the plain
 ``batched_step``.  The device decides; there is no option.  ``evaluate``
 steps the same way.  The policy is feed-forward: no rnn states are carried
-(the GRU is ROADMAP queue 1, item 11).  Left to later items:
-``save``/``restore`` and the scalar logger (item 14), render (item 14), the
-mesh (item 13).
+(the GRU is ROADMAP queue 1, item 11).
+
+With a ``run_dir`` the runner logs JAX's scalars to
+``<run_dir>/metrics.jsonl`` (``utils/logger.py``: ``mappo/
+average_episode_rewards``, ``mappo/<train info key>`` and
+``mappo/eval_score``) and ``save``s every ``save_interval`` updates.  A
+checkpoint (``<dir>/checkpoint.pt``, ``utils/checkpoint.py``) holds JAX's
+blob: both nets' parameters, both Adam states and the ValueNorm statistics;
+``restore`` also takes one with parameters and ValueNorm only.  JAX's
+pickled checkpoint holds optax states and does not load here: its weights
+cross through ``models/mappo_nets.py::load_mappo_params``.  Left to later
+items: render (item 14b), the mesh (item 13).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
 from typing import Dict, Optional
 
@@ -31,15 +42,19 @@ import torch
 from ...core.batch import batched_reset
 from ...device import DeviceLike, resolve_device
 from ...models.common import dist_sample
+from ...utils.checkpoint import load_pytree, save_pytree
+from ...utils.logger import ScalarLogger
 from ..fused_collect import make_fused_collect
 from .buffer import MAPPOBuffer, compute_returns, init_buffer
 from .config import MAPPOConfig
 from .policy import MAPPOPolicy
 from .trainer import RMAPPOTrainer
+from .valuenorm import ValueNormState
 
 
 class MAPPORunner:
-    def __init__(self, cfg: MAPPOConfig, env, device: DeviceLike = None):
+    def __init__(self, cfg: MAPPOConfig, env, run_dir: Optional[str] = None,
+                 device: DeviceLike = None):
         self.device = dev = resolve_device(device)
         if cfg.use_cnn_obs:
             raise NotImplementedError("the CNN base (use_cnn_obs) is not ported yet: "
@@ -52,6 +67,8 @@ class MAPPORunner:
                                   share_obs_shape=(env.state_size,),
                                   num_actions=env.num_actions, seed=cfg.seed, device=dev)
         self.trainer = RMAPPOTrainer(cfg, self.policy)
+        self.run_dir = run_dir
+        self.logger = ScalarLogger(run_dir) if run_dir else None
         self.sample_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         self.bstate, self.out = batched_reset(env, self.N, device=dev)
         # 0 where the env's last step ended an episode (the buffer's slot T)
@@ -158,16 +175,52 @@ class MAPPORunner:
             info, ep_rew = self.update(ep, episodes)
             self.episode_rewards.append(ep_rew)
             steps = (ep + 1) * steps_per_episode
+            if self.logger is not None:
+                self.logger.add_scalar("mappo/average_episode_rewards", ep_rew, steps)
+                for k, v in info.items():
+                    self.logger.add_scalar(f"mappo/{k}", float(v), steps)
+                self.logger.flush()
             if log is not None and ((ep + 1) % cfg.log_interval == 0 or ep == episodes - 1):
                 fps = steps / (time.time() - t0)
                 log(f"episode {ep + 1}/{episodes} steps={steps} avg_ep_reward={ep_rew:.2f} "
                     f"vloss={float(info['value_loss']):.4f} "
                     f"ent={float(info['dist_entropy']):.3f} FPS={fps:,.0f}")
+            if self.run_dir and (ep + 1) % cfg.save_interval == 0:
+                self.save()
             if cfg.use_eval and (ep + 1) % cfg.eval_interval == 0:
                 score = self.evaluate(episodes=max(1, cfg.eval_episodes // self.N))
+                if self.logger is not None:
+                    self.logger.add_scalar("mappo/eval_score", score, steps)
+                    self.logger.flush()
                 if log is not None:
                     log(f"eval @ episode {ep + 1}: deterministic score {score:.3f}")
         return info
+
+    # ---- checkpoints (JAX runner.py save/restore) ----------------------
+    def save(self, path: Optional[str] = None) -> None:
+        """Write both nets' parameters, both Adam states and the ValueNorm
+        statistics to ``<path or run_dir>/checkpoint.pt``, so that a
+        restored run resumes training rather than restarting Adam."""
+        pol, vn = self.policy, self.trainer.vn
+        save_pytree(os.path.join(path or self.run_dir, "checkpoint.pt"), {
+            "actor_params": pol.actor.state_dict(),
+            "critic_params": pol.critic.state_dict(),
+            "actor_opt": pol.actor_opt.state_dict(),
+            "critic_opt": pol.critic_opt.state_dict(),
+            "vn": {f.name: getattr(vn, f.name) for f in dataclasses.fields(vn)},
+        })
+
+    def restore(self, path: Optional[str] = None) -> None:
+        """Load a ``save``; a checkpoint without the Adam states (parameters
+        and ValueNorm only) keeps the runner's own."""
+        blob = load_pytree(os.path.join(path or self.run_dir, "checkpoint.pt"))
+        pol, dev = self.policy, self.device
+        pol.actor.load_state_dict(blob["actor_params"])
+        pol.critic.load_state_dict(blob["critic_params"])
+        if "actor_opt" in blob:
+            pol.actor_opt.load_state_dict(blob["actor_opt"])
+            pol.critic_opt.load_state_dict(blob["critic_opt"])
+        self.trainer.vn = ValueNormState(**{k: v.to(dev) for k, v in blob["vn"].items()})
 
     # ---- deterministic eval (train/tester.py analog) ------------------
     def evaluate(self, episodes: int = 1, deterministic: bool = True) -> float:

@@ -6,12 +6,13 @@
     python3 scripts/torch_cartpole_train.py --device cpu --num-envs 8 \\
         --total-timesteps 4096 --num-steps 128
 
-The flags and defaults are ``cartpole_train.py``'s, less ``--use-baseline``
-(the Python oracle envs under ``SyncVectorEnv``; ROADMAP queue 1 item 14),
-plus ``--device`` (default: the card).  One ``CleanPPOAgent`` steps a
-``DeviceVecEnv`` of Cartpole, so on the card every env step is one launch of
-the Cartpole step kernel.  After each update it prints
-``update U/N return=... pg=... ent=...``.
+The flags and defaults are ``cartpole_train.py``'s, plus ``--device``
+(default: the card).  One ``CleanPPOAgent`` steps a ``DeviceVecEnv`` of
+Cartpole, so on the card every env step is one launch of the Cartpole step
+kernel; with ``--use-baseline`` it steps the port's copy of the Python
+oracle env (``oracles/adapters.py`` ``CartpoleOracleEnv(seed=seed + i)``)
+under ``SyncVectorEnv``, the batches delivered on the device.  After each
+update it prints ``update U/N return=... pg=... ent=...``.
 """
 
 from __future__ import annotations
@@ -31,17 +32,30 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=2.5e-4)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--run-dir", default=None)
+    p.add_argument("--use-baseline", action="store_true",
+                   help="python oracle envs under SyncVectorEnv "
+                        "(reference: scripts/cartpole_train_numpy.py)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
 
 def build(args):
     """(venv, agent, num_updates) as ``args`` describe them."""
-    from madrona_rl_envs_playground_tpu_torch.api import DeviceVecEnv
+    from madrona_rl_envs_playground_tpu_torch.api import DeviceVecEnv, SyncVectorEnv
     from madrona_rl_envs_playground_tpu_torch.envs import cartpole
     from madrona_rl_envs_playground_tpu_torch.train import CleanPPOAgent
 
-    venv = DeviceVecEnv(cartpole.Env(), num_envs=args.num_envs, device=args.device)
+    if args.use_baseline:
+        from madrona_rl_envs_playground_tpu_torch.api.spaces import Box, Discrete
+        from madrona_rl_envs_playground_tpu_torch.oracles.adapters import CartpoleOracleEnv
+
+        venv = SyncVectorEnv([lambda i=i: CartpoleOracleEnv(seed=args.seed + i)
+                              for i in range(args.num_envs)], device=args.device)
+        venv.observation_space = Box(-float("inf"), float("inf"), (4,))
+        venv.share_observation_space = venv.observation_space
+        venv.action_space = Discrete(2)
+    else:
+        venv = DeviceVecEnv(cartpole.Env(), num_envs=args.num_envs, device=args.device)
     num_updates = args.total_timesteps // (args.num_steps * args.num_envs)
     agent = CleanPPOAgent(
         venv, "cartpole", num_updates=num_updates, num_steps=args.num_steps,
