@@ -1,7 +1,7 @@
 """MAPPO: config, buffer, policy, trainer (R_MAPPO) and runner (MainPlayer).
 
-Counterpart of ``madrona_rl_envs_playground_tpu/train/mappo/``, feed-forward
-only so far (ROADMAP queue 1, item 11).
+Counterpart of ``madrona_rl_envs_playground_tpu/train/mappo/``: the
+feed-forward, recurrent (GRU) and CNN policies.
 """
 
 from .buffer import MAPPOBuffer, after_update, chooseinsert, compute_returns, init_buffer, insert

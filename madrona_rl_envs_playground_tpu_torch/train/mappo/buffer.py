@@ -10,10 +10,9 @@ value-normalizer.
 
 The thread and agent axes are stored merged, ``M = N * A`` thread-major, as
 in JAX (every consumer flattens them), and scalar fields drop the
-reference's trailing 1.  The policy is feed-forward, so the buffer holds no
-rnn states (JAX keeps width-1 placeholders); the GRU slice (ROADMAP queue 1,
-item 11) adds them with the code that reads them.  The obs are stored in the
-env's own dtype (int8 for Overcooked): the network bases cast to float32 at
+reference's trailing 1.  The rnn states are ``[T+1, M, L, H]``, written at
+slot t + 1 by both inserts, as the reference's; a feed-forward run keeps
+width-1 placeholders, as JAX does.  The obs are stored in the env's own dtype (int8 for Overcooked): the network bases cast to float32 at
 their input.  Unlike the JAX pytree, the functions here write into the
 buffer in place and return it.
 """
@@ -33,6 +32,8 @@ from .valuenorm import ValueNormState, vn_denormalize
 class MAPPOBuffer:
     share_obs: torch.Tensor          # [T+1, M, S]  (M = N * A, thread-major)
     obs: torch.Tensor                # [T+1, M, O]
+    rnn_states: torch.Tensor         # [T+1, M, L, H]
+    rnn_states_critic: torch.Tensor  # [T+1, M, L, H]
     value_preds: torch.Tensor        # [T+1, M]
     returns: torch.Tensor            # [T+1, M]
     available_actions: torch.Tensor  # [T+1, M, Act] bool
@@ -46,9 +47,11 @@ class MAPPOBuffer:
 
 def init_buffer(episode_length: int, n_rollout_threads: int, num_agents: int,
                 obs_size: int, share_obs_size: int, num_actions: int,
+                recurrent_N: int = 1, hidden_size: int = 1,
                 obs_dtype=torch.float32, device: DeviceLike = None) -> MAPPOBuffer:
     dev = resolve_device(device)
     T, M = episode_length, n_rollout_threads * num_agents
+    L, H = recurrent_N, hidden_size
 
     def z(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -59,6 +62,8 @@ def init_buffer(episode_length: int, n_rollout_threads: int, num_agents: int,
     return MAPPOBuffer(
         share_obs=z((T + 1, M, share_obs_size), obs_dtype),
         obs=z((T + 1, M, obs_size), obs_dtype),
+        rnn_states=z((T + 1, M, L, H)),
+        rnn_states_critic=z((T + 1, M, L, H)),
         value_preds=z((T + 1, M)),
         returns=z((T + 1, M)),
         available_actions=ones((T + 1, M, num_actions), torch.bool),
@@ -71,11 +76,13 @@ def init_buffer(episode_length: int, n_rollout_threads: int, num_agents: int,
     )
 
 
-def _write(buf: MAPPOBuffer, obs_slot: int, step: int, share_obs, obs, actions,
-           action_log_probs, value_preds, rewards, masks, bad_masks, active_masks,
-           available_actions) -> MAPPOBuffer:
+def _write(buf: MAPPOBuffer, obs_slot: int, step: int, share_obs, obs, rnn_states,
+           rnn_states_critic, actions, action_log_probs, value_preds, rewards, masks,
+           bad_masks, active_masks, available_actions) -> MAPPOBuffer:
     buf.share_obs[obs_slot] = share_obs
     buf.obs[obs_slot] = obs
+    buf.rnn_states[step + 1] = rnn_states
+    buf.rnn_states_critic[step + 1] = rnn_states_critic
     buf.actions[step] = actions
     buf.action_log_probs[step] = action_log_probs
     buf.value_preds[step] = value_preds
@@ -90,29 +97,32 @@ def _write(buf: MAPPOBuffer, obs_slot: int, step: int, share_obs, obs, actions,
     return buf
 
 
-def insert(buf: MAPPOBuffer, step: int, share_obs, obs, actions, action_log_probs,
-           value_preds, rewards, masks, bad_masks=None, active_masks=None,
-           available_actions=None) -> MAPPOBuffer:
+def insert(buf: MAPPOBuffer, step: int, share_obs, obs, rnn_states, rnn_states_critic,
+           actions, action_log_probs, value_preds, rewards, masks, bad_masks=None,
+           active_masks=None, available_actions=None) -> MAPPOBuffer:
     """Simultaneous-env insert (reference ``shared_buffer.py:80-114``): the
-    obs, active flags and legal moves land at slot t + 1.  Slot values are
-    ``[M, ...]``."""
-    return _write(buf, step + 1, step, share_obs, obs, actions, action_log_probs, value_preds,
-                  rewards, masks, bad_masks, active_masks, available_actions)
+    obs, rnn states, active flags and legal moves land at slot t + 1.  Slot
+    values are ``[M, ...]``."""
+    return _write(buf, step + 1, step, share_obs, obs, rnn_states, rnn_states_critic, actions,
+                  action_log_probs, value_preds, rewards, masks, bad_masks, active_masks,
+                  available_actions)
 
 
-def chooseinsert(buf: MAPPOBuffer, step: int, share_obs, obs, actions, action_log_probs,
-                 value_preds, rewards, masks, bad_masks=None, active_masks=None,
-                 available_actions=None) -> MAPPOBuffer:
+def chooseinsert(buf: MAPPOBuffer, step: int, share_obs, obs, rnn_states, rnn_states_critic,
+                 actions, action_log_probs, value_preds, rewards, masks, bad_masks=None,
+                 active_masks=None, available_actions=None) -> MAPPOBuffer:
     """Turn-based insert (reference ``shared_buffer.py:116-148``): the
-    current obs, active flags and legal moves land at slot t, the masks at
-    t + 1."""
-    return _write(buf, step, step, share_obs, obs, actions, action_log_probs, value_preds,
-                  rewards, masks, bad_masks, active_masks, available_actions)
+    current obs, active flags and legal moves land at slot t, the rnn states
+    and masks at t + 1."""
+    return _write(buf, step, step, share_obs, obs, rnn_states, rnn_states_critic, actions,
+                  action_log_probs, value_preds, rewards, masks, bad_masks, active_masks,
+                  available_actions)
 
 
 def after_update(buf: MAPPOBuffer) -> MAPPOBuffer:
     """Copy the last slot to slot 0 (reference ``:150-163``)."""
-    for f in ("share_obs", "obs", "masks", "bad_masks", "active_masks", "available_actions"):
+    for f in ("share_obs", "obs", "rnn_states", "rnn_states_critic", "masks", "bad_masks",
+              "active_masks", "available_actions"):
         t = getattr(buf, f)
         t[0] = t[-1]
     return buf

@@ -15,19 +15,24 @@ The env steps through its collector (``train/fused_collect.py``), so on the
 card through its step kernel (K1 for Overcooked, K9 for Acrobot) and on the
 CPU through the kernel's plain version; envs without a kernel get the plain
 ``batched_step``.  The device decides; there is no option.  ``evaluate``
-steps the same way.  The policy is feed-forward: no rnn states are carried
-(the GRU is ROADMAP queue 1, item 11).
+steps the same way.  A recurrent policy's hidden states are carried from
+step to step and update to update, zeroed where an episode ended
+(``main_player.py:248-257``); the collect stores each step's states before
+the step, as JAX's scan does.  ``use_cnn_obs`` feeds the nets the Overcooked
+grid, ``[width, height, num_channels]``, so that their base is the CNN.
 
 With a ``run_dir`` the runner logs JAX's scalars to
 ``<run_dir>/metrics.jsonl`` (``utils/logger.py``: ``mappo/
 average_episode_rewards``, ``mappo/<train info key>`` and
 ``mappo/eval_score``) and ``save``s every ``save_interval`` updates.  A
 checkpoint (``<dir>/checkpoint.pt``, ``utils/checkpoint.py``) holds JAX's
-blob: both nets' parameters, both Adam states and the ValueNorm statistics;
-``restore`` also takes one with parameters and ValueNorm only.  JAX's
-pickled checkpoint holds optax states and does not load here: its weights
-cross through ``models/mappo_nets.py::load_mappo_params``.  Left to later
-items: render (item 14b), the mesh (item 13).
+blob: both nets' parameters (the GRU and conv ones too), both optimizer
+states (Adam or AdamW) and the ValueNorm statistics, and beside it the nets'
+``ModelConfig``; ``restore`` also takes one with parameters and ValueNorm
+only.  JAX's pickled checkpoint holds
+optax states and does not load here: its weights cross through
+``models/mappo_nets.py::load_mappo_params``.  Left to a later item: the mesh
+(item 13).
 """
 
 from __future__ import annotations
@@ -56,15 +61,22 @@ class MAPPORunner:
     def __init__(self, cfg: MAPPOConfig, env, run_dir: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = dev = resolve_device(device)
-        if cfg.use_cnn_obs:
-            raise NotImplementedError("the CNN base (use_cnn_obs) is not ported yet: "
-                                      "ROADMAP queue 1, item 11")
         self.cfg = cfg
         self.env = env
         self.N = cfg.n_rollout_threads
         self.A = env.num_agents
-        self.policy = MAPPOPolicy(cfg, obs_shape=(env.obs_size,),
-                                  share_obs_shape=(env.state_size,),
+        obs_shape, share_obs_shape = (env.obs_size,), (env.state_size,)
+        if cfg.use_cnn_obs:
+            # grid envs only: the flat obs is (x, y, c)-ordered, so the
+            # [W, H, C] reshape inside the nets recovers the grid the
+            # reference's CNN sees (utils/cnn.py)
+            if not hasattr(env, "width"):
+                raise ValueError(f"use_cnn_obs needs a grid env (width, height, "
+                                 f"num_channels); {type(env).__name__} has flat obs only")
+            obs_shape = (env.width, env.height, env.num_channels)
+            if env.state_size == env.obs_size:
+                share_obs_shape = obs_shape
+        self.policy = MAPPOPolicy(cfg, obs_shape=obs_shape, share_obs_shape=share_obs_shape,
                                   num_actions=env.num_actions, seed=cfg.seed, device=dev)
         self.trainer = RMAPPOTrainer(cfg, self.policy)
         self.run_dir = run_dir
@@ -73,6 +85,11 @@ class MAPPORunner:
         self.bstate, self.out = batched_reset(env, self.N, device=dev)
         # 0 where the env's last step ended an episode (the buffer's slot T)
         self._masks = torch.ones((self.N * self.A,), device=dev)
+        # the hidden states (JAX keeps width-1 placeholders where the policy
+        # is feed-forward, and so does the port)
+        self._rnn = self.policy.actor.zero_states(self.N * self.A, dev)
+        self._rnnc = self.policy.critic.zero_states(self.N * self.A, dev)
+        self._rnn_shape = tuple(self._rnn.shape)
         self._fused = make_fused_collect(env, self.N, dev)
         self.episode_rewards = []  # average episode score of each update
 
@@ -81,10 +98,12 @@ class MAPPORunner:
         """One ``episode_length`` rollout from the runner's carry, which it
         advances.  ``actions`` ([T, N, A] int), when given, replaces the
         sampled actions.  Returns the trajectory, ``[T, M, ...]`` with
-        M = N * A thread-major."""
+        M = N * A thread-major; a recurrent policy's also holds ``rnn`` and
+        ``rnnc``, each step's hidden states before it."""
         cfg, N, A = self.cfg, self.N, self.A
         B, T, dev = N * A, cfg.episode_length, self.device
         carry, out, masks = self._fused.pack(self.bstate), self.out, self._masks
+        rnn, rnnc, recurrent = self._rnn, self._rnnc, self.policy.recurrent
         env = self.env
         tr = {
             "share_obs": torch.empty((T, B, env.state_size), dtype=out.state_obs.dtype,
@@ -99,6 +118,9 @@ class MAPPORunner:
             "avail": torch.empty((T, B, env.num_actions), dtype=torch.bool, device=dev),
             "done": torch.empty((T, N), dtype=torch.bool, device=dev),
         }
+        if recurrent:
+            tr["rnn"] = torch.empty((T,) + self._rnn_shape, device=dev)
+            tr["rnnc"] = torch.empty((T,) + self._rnn_shape, device=dev)
         with torch.no_grad():
             for t in range(T):
                 obs = out.obs.reshape(B, -1)  # the env's dtype; the bases cast
@@ -106,11 +128,16 @@ class MAPPORunner:
                 avail = out.action_mask.reshape(B, -1)
                 injected = None if actions is None else actions[t].reshape(B).to(
                     device=dev, dtype=torch.int32)
-                values, act, logp = self.policy.get_actions(
-                    sobs, obs, avail, generator=self.sample_gen, actions=injected)
+                values, act, logp, rnn2, rnnc2 = self.policy.get_actions(
+                    sobs, obs, rnn, rnnc, masks, avail, generator=self.sample_gen,
+                    actions=injected)
                 carry, out2 = self._fused.step(carry, act.reshape(N, A))
                 done_b = out2.done[:, None].expand(N, A).reshape(B)
                 masks2 = 1.0 - done_b.float()
+                if recurrent:
+                    tr["rnn"][t], tr["rnnc"][t] = rnn, rnnc
+                    # reset the hidden states where an episode ended
+                    rnn, rnnc = rnn2 * masks2[:, None, None], rnnc2 * masks2[:, None, None]
                 for k, v in (("share_obs", sobs), ("obs", obs), ("actions", act), ("logp", logp),
                              ("values", values), ("rewards", out2.reward.reshape(B)), ("masks", masks),
                              ("active", out.active.reshape(B)), ("avail", avail),
@@ -118,13 +145,14 @@ class MAPPORunner:
                     tr[k][t] = v
                 masks, out = masks2, out2
         self.bstate, self.out = self._fused.unpack(carry), out
-        self._masks = masks
+        self._masks, self._rnn, self._rnnc = masks, rnn, rnnc
         return tr
 
     def _compute(self, buf: MAPPOBuffer) -> MAPPOBuffer:
         B = self.N * self.A
         with torch.no_grad():
-            next_value = self.policy.get_values(self.out.state_obs.reshape(B, -1))
+            next_value = self.policy.get_values(self.out.state_obs.reshape(B, -1),
+                                                self._rnnc, self._masks)
         vn = self.trainer.vn if (self.cfg.use_popart or self.cfg.use_valuenorm) else None
         return compute_returns(buf, next_value.reshape(B), vn, self.cfg.gamma,
                                self.cfg.gae_lambda, self.cfg.use_gae,
@@ -133,10 +161,14 @@ class MAPPORunner:
     def _tr_to_buffer(self, tr: Dict[str, torch.Tensor], final_masks: torch.Tensor,
                       final_active: torch.Tensor) -> MAPPOBuffer:
         cfg, env, N, A = self.cfg, self.env, self.N, self.A
+        L, H = self._rnn_shape[1:]
         buf = init_buffer(cfg.episode_length, N, A, env.obs_size, env.state_size,
-                          env.num_actions, obs_dtype=env.obs_dtype, device=self.device)
+                          env.num_actions, L, H, obs_dtype=env.obs_dtype, device=self.device)
         buf.share_obs[:-1] = tr["share_obs"]
         buf.obs[:-1] = tr["obs"]
+        if "rnn" in tr:
+            buf.rnn_states[:-1] = tr["rnn"]
+            buf.rnn_states_critic[:-1] = tr["rnnc"]
         buf.actions.copy_(tr["actions"])
         buf.action_log_probs.copy_(tr["logp"])
         buf.value_preds[:-1] = tr["values"]
@@ -198,11 +230,14 @@ class MAPPORunner:
 
     # ---- checkpoints (JAX runner.py save/restore) ----------------------
     def save(self, path: Optional[str] = None) -> None:
-        """Write both nets' parameters, both Adam states and the ValueNorm
-        statistics to ``<path or run_dir>/checkpoint.pt``, so that a
-        restored run resumes training rather than restarting Adam."""
+        """Write both nets' parameters, both optimizer states and the
+        ValueNorm statistics to ``<path or run_dir>/checkpoint.pt``, so that a
+        restored run resumes training rather than restarting Adam, and the
+        nets' ``ModelConfig``, so that an exporter rebuilds the actor as
+        trained (the activation leaves no parameter)."""
         pol, vn = self.policy, self.trainer.vn
         save_pytree(os.path.join(path or self.run_dir, "checkpoint.pt"), {
+            "model_config": dataclasses.asdict(pol.mc),
             "actor_params": pol.actor.state_dict(),
             "critic_params": pol.critic.state_dict(),
             "actor_opt": pol.actor_opt.state_dict(),
@@ -211,8 +246,8 @@ class MAPPORunner:
         })
 
     def restore(self, path: Optional[str] = None) -> None:
-        """Load a ``save``; a checkpoint without the Adam states (parameters
-        and ValueNorm only) keeps the runner's own."""
+        """Load a ``save``; a checkpoint without the optimizer states
+        (parameters and ValueNorm only) keeps the runner's own."""
         blob = load_pytree(os.path.join(path or self.run_dir, "checkpoint.pt"))
         pol, dev = self.policy, self.device
         pol.actor.load_state_dict(blob["actor_params"])
@@ -227,19 +262,25 @@ class MAPPORunner:
         """Average episode score over ``episodes * episode_length`` steps of
         fresh envs (episodes from 10,000,000 on), seat 0's reward summed, per
         episode and env.  Steps through the env's collector where it has one,
-        whose outputs equal ``batched_step``'s."""
+        whose outputs equal ``batched_step``'s.  The actor starts from zero
+        states and carries them, zeroed where an episode ended, as
+        ``_collect`` does."""
         cfg, N, A, dev = self.cfg, self.N, self.A, self.device
         B = N * A
         bstate, out = batched_reset(self.env, N, start_episode=10_000_000, device=dev)
         carry = self._fused.pack(bstate)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed + 777)
         total = torch.zeros((), dtype=torch.float64, device=dev)
+        actor = self.policy.actor
+        rnn, masks = actor.zero_states(B, dev), torch.ones((B,), device=dev)
         with torch.no_grad():
             for _ in range(episodes * cfg.episode_length):
-                logits = self.policy.actor(out.obs.reshape(B, -1),
-                                           out.action_mask.reshape(B, -1))
+                obs, avail = out.obs.reshape(B, -1), out.action_mask.reshape(B, -1)
+                logits, rnn = actor(obs, rnn, masks, avail)
                 act = (torch.argmax(logits, -1).to(torch.int32) if deterministic
                        else dist_sample(gen, logits))
                 carry, out = self._fused.step(carry, act.reshape(N, A))
                 total += out.reward[:, 0].sum(dtype=torch.float64)
+                masks = 1.0 - out.done[:, None].expand(N, A).reshape(B).float()
+                rnn = rnn * masks[:, None, None]
         return float(total) / (episodes * N)

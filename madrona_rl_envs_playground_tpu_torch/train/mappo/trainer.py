@@ -1,6 +1,6 @@
-"""The R_MAPPO update, feed-forward.
+"""The R_MAPPO update.
 
-Counterpart of ``RMAPPOTrainer._train`` in
+Counterpart of ``RMAPPOTrainer`` in
 ``madrona_rl_envs_playground_tpu/train/mappo/trainer.py`` (reference
 ``R_MAPPO``, ``train/MAPPO/r_mappo.py``):
 
@@ -11,6 +11,12 @@ Counterpart of ``RMAPPOTrainer._train`` in
   flat batch; with one minibatch the whole ``[T, M]`` batch, unshuffled
   (every reduction is order-free, so the reference's shuffle changes
   nothing there);
+* recurrent (``_train_recurrent``, reference ``shared_buffer.py:393-502``):
+  the ``[T, M]`` buffer cut into ``C = (T / L) * M`` chunks of ``L =
+  data_chunk_length`` steps (``L = T`` for the naive form), chunk-major as
+  JAX's (chunk ``c = m * T / L + k``), each starting from the hidden state
+  stored at its first step; each epoch permutes the chunks and every
+  minibatch unrolls the GRU over its ``[L, chunks]`` sequences;
 * the actor loss: the clipped surrogate weighted by the active masks, minus
   the entropy bonus; the critic loss: value clipping and a Huber loss
   against the value-normalized returns, the ValueNorm or PopArt statistics
@@ -18,8 +24,7 @@ Counterpart of ``RMAPPOTrainer._train`` in
   reference's ``cal_value_loss``; each network behind its own global-norm
   clip and Adam.
 
-The recurrent update (``_train_recurrent``) is not ported yet (ROADMAP
-queue 1, item 11); ``shard_local_minibatch`` waits for the mesh (item 13).
+``shard_local_minibatch`` waits for the mesh (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ class RMAPPOTrainer:
                                       "ported yet: ROADMAP queue 1, item 13")
         self.cfg = cfg
         self.policy = policy
+        self.recurrent = cfg.use_recurrent_policy or cfg.use_naive_recurrent_policy
         self.vn: ValueNormState = init_valuenorm(policy.device)
         self.generator = torch.Generator(device=policy.device).manual_seed(cfg.seed)
 
@@ -80,12 +86,17 @@ class RMAPPOTrainer:
             vl = loss.mean()
         return vl, vn
 
-    def _ppo_update(self, sample: Sequence[torch.Tensor]):
-        """One minibatch: PopArt's head update where enabled, then one Adam
-        step of the actor and one of the critic.  Returns (value loss, policy
-        loss, entropy, mean ratio), detached."""
+    def _ppo_update(self, sample: Sequence[Optional[torch.Tensor]], sequence: bool = False):
+        """One minibatch, JAX's sample tuple (share_obs, obs, rnn_states,
+        rnn_states_critic, actions, value_preds, returns, masks,
+        active_masks, old log-probs, advantages, available_actions; the rnn
+        states and masks None for a feed-forward policy): PopArt's head
+        update where enabled, then one optimizer step of the actor and one of
+        the critic.  ``sequence``: the fields are ``[L, B, ...]`` and the
+        rnn states those of each sequence's first step.  Returns (value
+        loss, policy loss, entropy, mean ratio), detached."""
         cfg, pol = self.cfg, self.policy
-        (sobs, obs, act, vp, ret, amsk, old_logp, adv, avail) = sample
+        (sobs, obs, rnn, rnnc, act, vp, ret, msk, amsk, old_logp, adv, avail) = sample
         stats_updated = False
         if cfg.use_popart:
             # refresh the statistics on this minibatch's returns and rescale
@@ -97,7 +108,8 @@ class RMAPPOTrainer:
                 head.bias[0] = b2
             stats_updated = True
 
-        values, logp, entropy = pol.evaluate_actions(sobs, obs, act, avail, amsk)
+        values, logp, entropy = pol.evaluate_actions(sobs, obs, rnn, rnnc, act, msk, avail, amsk,
+                                                     sequence=sequence)
         ratio = torch.exp(logp - old_logp)
         surr1 = ratio * adv
         surr2 = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * adv
@@ -118,21 +130,9 @@ class RMAPPOTrainer:
         return torch.stack([v_loss.detach(), pg_loss.detach(), entropy.detach(),
                             ratio.mean().detach()])
 
-    def train(self, buf: MAPPOBuffer, lrs: Optional[Tuple[float, float]] = None,
-              perms: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        """``ppo_epoch`` passes over ``buf``; ``lrs`` = (actor, critic)
-        learning rates (default the config's).  With ``num_mini_batch > 1``
-        each epoch draws a permutation of the ``T * M`` samples from the
-        trainer's generator, or takes ``perms[epoch]`` where given (tests
-        replay JAX's order).  Returns the mean losses, entropy and ratio."""
-        cfg, pol = self.cfg, self.policy
-        actor_lr, critic_lr = lrs if lrs is not None else (cfg.lr, cfg.critic_lr)
-        for group in pol.actor_opt.param_groups:
-            group["lr"] = actor_lr
-        for group in pol.critic_opt.param_groups:
-            group["lr"] = critic_lr
-        T, M = buf.rewards.shape
-
+    def _advantages(self, buf: MAPPOBuffer) -> torch.Tensor:
+        """Returns minus the denormalized predictions, normalized over the
+        active steps (population variance, the reference's ``np.nanstd``)."""
         with torch.no_grad():
             vp = buf.value_preds[:-1]
             adv_raw = buf.returns[:-1] - (vn_denormalize(self.vn, vp) if self._normalized()
@@ -142,14 +142,42 @@ class RMAPPOTrainer:
             zero = torch.zeros_like(adv_raw)
             mean_adv = torch.where(active, adv_raw, zero).sum() / n_act
             var_adv = torch.where(active, (adv_raw - mean_adv) ** 2, zero).sum() / n_act
-            advantages = (adv_raw - mean_adv) / (torch.sqrt(var_adv) + 1e-5)
+            return (adv_raw - mean_adv) / (torch.sqrt(var_adv) + 1e-5)
 
+    def _set_lrs(self, lrs: Optional[Tuple[float, float]]) -> None:
+        cfg, pol = self.cfg, self.policy
+        actor_lr, critic_lr = lrs if lrs is not None else (cfg.lr, cfg.critic_lr)
+        for group in pol.actor_opt.param_groups:
+            group["lr"] = actor_lr
+        for group in pol.critic_opt.param_groups:
+            group["lr"] = critic_lr
+
+    def _perm(self, epoch: int, n: int, perms) -> torch.Tensor:
+        dev = self.policy.device
+        return (perms[epoch].to(dev) if perms is not None
+                else torch.randperm(n, generator=self.generator, device=dev))
+
+    def train(self, buf: MAPPOBuffer, lrs: Optional[Tuple[float, float]] = None,
+              perms: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """``ppo_epoch`` passes over ``buf``; ``lrs`` = (actor, critic)
+        learning rates (default the config's).  Feed-forward, with
+        ``num_mini_batch > 1`` each epoch draws a permutation of the ``T *
+        M`` samples from the trainer's generator, or takes ``perms[epoch]``
+        where given (tests replay JAX's order); recurrent, a permutation of
+        the chunks (``_train_recurrent``).  Returns the mean losses, entropy
+        and ratio."""
+        self._set_lrs(lrs)
+        if self.recurrent:
+            return self._train_recurrent(buf, perms)
+        cfg = self.cfg
+        T, M = buf.rewards.shape
+        advantages = self._advantages(buf)
         nmb = cfg.num_mini_batch
         B = T * M
         flat = (lambda x: x) if nmb == 1 else (lambda x: x.reshape((B,) + x.shape[2:]))
-        data = tuple(flat(x) for x in (
-            buf.share_obs[:-1], buf.obs[:-1], buf.actions, buf.value_preds[:-1],
-            buf.returns[:-1], buf.active_masks[:-1], buf.action_log_probs, advantages,
+        data = tuple(None if x is None else flat(x) for x in (
+            buf.share_obs[:-1], buf.obs[:-1], None, None, buf.actions, buf.value_preds[:-1],
+            buf.returns[:-1], None, buf.active_masks[:-1], buf.action_log_probs, advantages,
             buf.available_actions[:-1]))
 
         epochs = []
@@ -158,10 +186,58 @@ class RMAPPOTrainer:
                 epochs.append(self._ppo_update(data))
                 continue
             mb = B // nmb
-            perm = (perms[epoch].to(pol.device) if perms is not None
-                    else torch.randperm(B, generator=self.generator, device=pol.device))
-            idxs = perm[: nmb * mb].reshape(nmb, mb)
-            epochs.append(torch.stack([self._ppo_update(tuple(d[idx] for d in data))
-                                       for idx in idxs]).mean(0))
+            idxs = self._perm(epoch, B, perms)[: nmb * mb].reshape(nmb, mb)
+            epochs.append(torch.stack([
+                self._ppo_update(tuple(None if d is None else d[idx] for d in data))
+                for idx in idxs]).mean(0))
+        return self._info(epochs)
+
+    def _train_recurrent(self, buf: MAPPOBuffer,
+                         perms: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """The recurrent update (JAX ``trainer.py:258-337``).  Each epoch
+        permutes the ``C`` chunks (``perms[epoch]`` where given) and cuts
+        them into ``num_mini_batch`` minibatches; the chunks are held
+        sequence-major, ``[L, C, ...]``, so a minibatch is one gather along
+        the chunk axis."""
+        cfg = self.cfg
+        T, M = buf.rewards.shape
+        L = cfg.data_chunk_length if cfg.use_recurrent_policy else T
+        if T % L:
+            raise ValueError(f"episode_length ({T}) must be a multiple of data_chunk_length "
+                             f"({L})")
+        K = T // L
+        C = K * M
+        advantages = self._advantages(buf)
+
+        def chunk(x):
+            # [T, M, ...] -> [L, C, ...], chunk c = m * K + k
+            y = x.reshape((K, L, M) + tuple(x.shape[2:])).transpose(0, 2)  # [M, L, K, ...]
+            return y.transpose(0, 1).reshape((L, C) + tuple(x.shape[2:]))
+
+        def chunk_start(x):
+            # the state at each chunk's first step: [T, M, Lr, H] -> [C, Lr, H]
+            return x[::L].transpose(0, 1).reshape((C,) + tuple(x.shape[2:]))
+
+        data = (chunk(buf.share_obs[:-1]), chunk(buf.obs[:-1]),
+                chunk_start(buf.rnn_states[:-1]), chunk_start(buf.rnn_states_critic[:-1]),
+                chunk(buf.actions), chunk(buf.value_preds[:-1]), chunk(buf.returns[:-1]),
+                chunk(buf.masks[:-1]), chunk(buf.active_masks[:-1]),
+                chunk(buf.action_log_probs), chunk(advantages),
+                chunk(buf.available_actions[:-1]))
+        starts = (2, 3)  # the chunk-start states, [C, ...]: gathered on their first axis
+
+        nmb = cfg.num_mini_batch
+        mb = C // nmb
+        epochs = []
+        for epoch in range(cfg.ppo_epoch):
+            idxs = self._perm(epoch, C, perms)[: nmb * mb].reshape(nmb, mb)
+            epochs.append(torch.stack([
+                self._ppo_update(tuple(d[idx] if i in starts else d[:, idx]
+                                       for i, d in enumerate(data)), sequence=True)
+                for idx in idxs]).mean(0))
+        return self._info(epochs)
+
+    @staticmethod
+    def _info(epochs) -> Dict[str, torch.Tensor]:
         m = torch.stack(epochs).mean(0)
         return {"value_loss": m[0], "policy_loss": m[1], "dist_entropy": m[2], "ratio": m[3]}

@@ -5,7 +5,10 @@
 Loads a MAPPO checkpoint (``MAPPORunner.save``: ``<dir>/checkpoint.pt``) or a
 self-play one (``SelfPlayPPO.save``) and serves actions over HTTP (stdlib
 only).  The actor runs in fp32 on ``--device`` (default the card); no env is
-stepped.
+stepped.  A recurrent or CNN MAPPO actor is named by the trainer's flags
+(``--use_recurrent_policy``, ``--recurrent_N``, ``--use_cnn_obs``); a
+recurrent one answers each request from a zero hidden state and masks of 1,
+as JAX's server does.
 
     python3 scripts/torch_serve_policy.py --checkpoint runs/mappo \\
         --env_name overcooked --over_layout simple --port 8808
@@ -98,11 +101,33 @@ def load_actor(args):
     from madrona_rl_envs_playground_tpu_torch.train.mappo import MAPPOConfig, MAPPORunner
 
     cfg = MAPPOConfig(hidden_size=args.hidden_size, layer_N=args.layer_N,
-                      episode_length=args.episode_length, n_rollout_threads=1)
+                      episode_length=args.episode_length, n_rollout_threads=1,
+                      **{k: getattr(args, k, v) for k, v in NET_FLAGS.items()})
     runner = MAPPORunner(cfg, env, device=dev)
     runner.restore(args.checkpoint)
     actor = runner.policy.actor.eval()
-    return _actor_fn(actor, env, dev), env
+
+    def logits(obs, mask):
+        # each request from a zero hidden state and masks of 1 (JAX's
+        # serve_policy.py); a feed-forward actor passes the states through
+        B = obs.shape[0]
+        return actor(obs, actor.zero_states(B, dev), torch.ones((B,), device=dev), mask)[0]
+
+    return _actor_fn(logits, env, dev), env
+
+
+# the MAPPO flags that shape the actor beyond its width and depth, with
+# torch_mappo_train.py's names and defaults
+NET_FLAGS = {"use_recurrent_policy": False, "use_naive_recurrent_policy": False,
+             "recurrent_N": 1, "use_cnn_obs": False}
+
+
+def add_net_flags(p: argparse.ArgumentParser) -> None:
+    for name, default in NET_FLAGS.items():
+        if isinstance(default, bool):
+            p.add_argument(f"--{name}", action="store_true")
+        else:
+            p.add_argument(f"--{name}", type=type(default), default=default)
 
 
 def _load_selfplay_actor(args, env, dev):
@@ -185,6 +210,7 @@ def parse_args(argv=None):
     p.add_argument("--episode_length", type=int, default=200)
     p.add_argument("--hidden_size", type=int, default=64)
     p.add_argument("--layer_N", type=int, default=1)
+    add_net_flags(p)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8808)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -9,6 +9,9 @@ of ``scripts/tester.py``; reference: train/tester.py).
 Restores ``<model_dir>/checkpoint.pt`` (``MAPPORunner.save``) into a runner
 of the given width, calls ``evaluate`` and prints ``average episode score:
 ...``.  On the card each eval step is one launch of the env's step kernel.
+A recurrent or CNN policy is named by the trainer's flags
+(``--use_recurrent_policy``, ``--recurrent_N``, ``--use_cnn_obs``); the
+eval carries a recurrent actor's hidden states (``MAPPORunner.evaluate``).
 """
 
 import argparse
@@ -16,6 +19,9 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from torch_serve_policy import NET_FLAGS, add_net_flags, make_serve_env  # noqa: E402
 
 
 def main(argv=None):
@@ -27,12 +33,11 @@ def main(argv=None):
     p.add_argument("--n_rollout_threads", type=int, default=32)
     p.add_argument("--hidden_size", type=int, default=64)
     p.add_argument("--layer_N", type=int, default=1)
+    add_net_flags(p)
     p.add_argument("--episodes", type=int, default=1)
     p.add_argument("--stochastic", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-
-    from torch_serve_policy import make_serve_env
 
     from madrona_rl_envs_playground_tpu_torch.train.mappo import MAPPOConfig, MAPPORunner
 
@@ -41,6 +46,7 @@ def main(argv=None):
         n_rollout_threads=args.n_rollout_threads,
         hidden_size=args.hidden_size,
         layer_N=args.layer_N,
+        **{k: getattr(args, k) for k in NET_FLAGS},
     )
     env = make_serve_env(args)
 

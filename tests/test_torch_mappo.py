@@ -148,9 +148,7 @@ def test_insert_and_after_update_match_jax(mode):
     for step in range(T):
         v = _slot_values(rs)
         j_buf = getattr(jm, mode)(j_buf, step, **{k: jnp.asarray(x) for k, x in v.items()})
-        # the port's feed-forward buffer holds no rnn states
-        t_buf = getattr(tm, mode)(t_buf, step, **{k: torch.from_numpy(x) for k, x in v.items()
-                                                  if not k.startswith("rnn")})
+        t_buf = getattr(tm, mode)(t_buf, step, **{k: torch.from_numpy(x) for k, x in v.items()})
     _assert_buf(t_buf, j_buf, rtol=0, atol=0)
     _assert_buf(tm.after_update(t_buf), jm.after_update(j_buf), rtol=0, atol=0)
 
@@ -211,9 +209,10 @@ def test_networks_match_flax(layer_n, relu, feature_norm, masked):
     j_logits, _ = j_actor.apply(ap, jnp.asarray(obs), rnn, msk,
                                 None if avail is None else jnp.asarray(avail))
     j_values, _ = j_critic.apply(cp, jnp.asarray(sobs), rnn, msk)
-    t_logits = t_actor(torch.from_numpy(obs),
-                       None if avail is None else torch.from_numpy(avail))
-    t_values = t_critic(torch.from_numpy(sobs))
+    t_logits, t_h = t_actor(torch.from_numpy(obs), t_actor.zero_states(B), torch.ones(B),
+                            None if avail is None else torch.from_numpy(avail))
+    t_values, _ = t_critic(torch.from_numpy(sobs), t_critic.zero_states(B), torch.ones(B))
+    assert tuple(t_h.shape) == (B, 1, 1) and not t_h.any()  # placeholders pass through
     _close(t_logits, j_logits, rtol=1e-5, atol=1e-5)
     _close(t_values, j_values)
     if masked:
@@ -238,13 +237,17 @@ def test_init_layernorm_eps_and_critic_head():
     del critic.v_out
     with pytest.raises(KeyError):
         t_nets.get_critic_head(critic)
-    for bad in (dict(use_recurrent_policy=True), dict(layer_N=1)):
-        if "layer_N" in bad:
-            with pytest.raises(NotImplementedError, match="item 11"):
-                t_nets.R_Actor(t_nets.ModelConfig(**bad), (5, 4, 3), 6)
-        else:
-            with pytest.raises(NotImplementedError, match="item 11"):
-                t_nets.R_Critic(t_nets.ModelConfig(**bad), (6,))
+    # the recurrent and CNN nets build: a GRU and its LayerNorm (flax's eps
+    # too), a 3x3 conv of hidden // 2 channels over a [W, H, C] grid
+    rec = t_nets.ModelConfig(hidden_size=16, use_recurrent_policy=True, recurrent_N=2)
+    critic = t_nets.R_Critic(rec, (6,))
+    assert len(critic.rnn.cells) == 2 and critic.rnn.norm.eps == 1e-6
+    assert float(critic.rnn.cells[0].input.bias.detach().abs().max()) == 0
+    actor = t_nets.R_Actor(t_nets.ModelConfig(hidden_size=16, layer_N=1), (5, 4, 3), 6)
+    assert isinstance(actor.base, t_nets.CNNBase) and actor.rnn is None
+    assert tuple(actor.base.conv.weight.shape) == (8, 3, 3, 3)
+    logits, _ = actor(torch.zeros(2, 60), actor.zero_states(2), torch.ones(2))
+    assert tuple(logits.shape) == (2, 6)
 
 
 # ---- one update -----------------------------------------------------------------
@@ -391,7 +394,8 @@ def _runners(name, n=4, steps=8):
 def _jax_collect_injected(jr, acts):
     """JAX ``_collect`` with the policy's sampler replaced by the injected
     actions (``acts`` [T, N, A]); the sampler finds its step by matching the
-    key it is handed against the collect's chain of ``split`` keys."""
+    key it is handed against the collect's chain of ``split`` keys.  Jitted
+    afresh each call, so that this call's table of actions is traced in."""
     T_, N_, A_ = acts.shape
     key = jax.random.PRNGKey(11)
     step_keys, k = [], key
@@ -407,8 +411,8 @@ def _jax_collect_injected(jr, acts):
     real = j_policy_mod.dist_sample
     j_policy_mod.dist_sample = injected
     try:
-        return jr._collect(jr.trainer.state.policy, jr.bstate, jr.out, jr._rnn, jr._rnnc,
-                           jr._masks, key)
+        return jax.jit(jr._collect_impl)(jr.trainer.state.policy, jr.bstate, jr.out, jr._rnn,
+                                          jr._rnnc, jr._masks, key)
     finally:
         j_policy_mod.dist_sample = real
 
@@ -484,11 +488,14 @@ def test_runner_smoke_two_episodes():
 def test_runner_needs_a_card_and_names_what_is_left_out(monkeypatch):
     env = t_balance.Env()
     small = dict(episode_length=2, n_rollout_threads=2, hidden_size=8)
-    for bad, item in ((dict(use_cnn_obs=True), "item 11"),
-                      (dict(use_recurrent_policy=True), "item 11"),
-                      (dict(shard_local_minibatch=True), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            tm.MAPPORunner(tm.MAPPOConfig(**small, **bad), env, device=CPU)
+    # the recurrent policy builds; the CNN needs a grid env (JAX raises the
+    # same ValueError); the mesh's minibatching names item 13
+    assert tm.MAPPORunner(tm.MAPPOConfig(**small, use_recurrent_policy=True), env,
+                          device=CPU).policy.actor.rnn is not None
+    with pytest.raises(ValueError, match="grid env"):
+        tm.MAPPORunner(tm.MAPPOConfig(**small, use_cnn_obs=True), env, device=CPU)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tm.MAPPORunner(tm.MAPPOConfig(**small, shard_local_minibatch=True), env, device=CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tm.MAPPORunner(tm.MAPPOConfig(**small), env)

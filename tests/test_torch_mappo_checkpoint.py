@@ -12,13 +12,13 @@ resumes from a saved run; ``scripts/torch_tester.py`` prints the restored
 runner's finite score.
 """
 
+import dataclasses
 import json
 import os
 import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 from madrona_rl_envs_playground_tpu_torch.envs import balance_beam
@@ -55,7 +55,8 @@ def assert_tree_equal(a, b, what=""):
 
 def runner_state(r: MAPPORunner):
     pol, vn = r.policy, r.trainer.vn
-    return {"actor_params": pol.actor.state_dict(), "critic_params": pol.critic.state_dict(),
+    return {"model_config": dataclasses.asdict(pol.mc),
+            "actor_params": pol.actor.state_dict(), "critic_params": pol.critic.state_dict(),
             "actor_opt": pol.actor_opt.state_dict(), "critic_opt": pol.critic_opt.state_dict(),
             "vn": {k: getattr(vn, k) for k in ("running_mean", "running_mean_sq",
                                                 "debiasing_term")}}
@@ -140,6 +141,15 @@ def test_mappo_train_model_dir_resumes_and_tester_scores(tmp_path, capsys):
     assert np.isfinite(score) and score == resumed.evaluate(episodes=1)
 
 
-def test_use_render_names_item_14b():
-    with pytest.raises(SystemExit, match="14b"):
-        torch_mappo_train.main(MAPPO_ARGS + ["--use_render"])
+def test_use_render_names_item_14b(tmp_path, capsys):
+    """``--use_render`` (ROADMAP item 14b, now ported) on a non-Overcooked
+    env writes JAX's ``trajectory.json``: ``--render_episodes`` episodes of
+    the greedy actor, its actions and rewards."""
+    run = str(tmp_path / "run")
+    torch_mappo_train.main(MAPPO_ARGS + ["--num_env_steps", "48", "--run_dir", run,
+                                         "--use_render", "--render_episodes", "2"])
+    assert capsys.readouterr().out.splitlines()[-1] == (
+        f"render: wrote {run}/render/trajectory.json")
+    traj = json.load(open(os.path.join(run, "render", "trajectory.json")))
+    assert sorted(traj) == ["actions", "rewards"] and len(traj["actions"]) == 2 * 6
+    assert all(len(a) == 2 and all(0 <= x < 4 for x in a) for a in traj["actions"])

@@ -83,8 +83,9 @@ def test_serve_roundtrip(tmp_path):
         obs = np.random.RandomState(0).randint(0, 3, size=(3, env.obs_size)).astype(float)
         served = _post(port, {"obs": obs.tolist()})["actions"]
         with torch.no_grad():  # direct deterministic forward
-            logits = runner.policy.actor(torch.as_tensor(obs, dtype=torch.float32),
-                                         torch.ones((3, env.num_actions), dtype=torch.bool))
+            actor = runner.policy.actor
+            logits, _ = actor(torch.as_tensor(obs, dtype=torch.float32), actor.zero_states(3),
+                              torch.ones(3), torch.ones((3, env.num_actions), dtype=torch.bool))
         np.testing.assert_array_equal(served, torch.argmax(logits, -1).numpy())
 
         # 8 concurrent clients get the serial answers
