@@ -181,8 +181,12 @@ class DeviceVecEnv(VectorMultiAgentEnv):
     ``bstate``.  Seat views are slices; rewards come back ``[P, N]`` (the
     reference transposes its (N, P) buffers the same way,
     ``vectorenv.py:306-317``).  ``device`` defaults to the card and raises
-    without one unless it is ``"cpu"``.  ``sharding`` (JAX's mesh) comes
-    with ROADMAP item 13 and raises."""
+    without one unless it is ``"cpu"``.  ``sharding`` (JAX's, here a
+    ``parallel.mesh.Mesh``) makes the env this rank's rows of the
+    ``num_envs`` worlds, on the mesh's device, stepped through the mesh's
+    collector (``core/batch.py``'s offsets; K1 for Overcooked): actions,
+    seat views, rewards and dones are this rank's, and every rank steps and
+    resets together."""
 
     def __init__(
         self,
@@ -195,33 +199,32 @@ class DeviceVecEnv(VectorMultiAgentEnv):
         start_episode: int = 0,
         device: DeviceLike = None,
     ):
-        if sharding is not None:
-            raise NotImplementedError("DeviceVecEnv(sharding=...): data parallelism over "
-                                      "the env axis is ROADMAP queue 1 item 13")
+        self.mesh = sharding
         super().__init__(
-            num_envs,
+            num_envs if sharding is None else sharding.local_size(num_envs),
             ego_ind=ego_ind,
             n_players=env.num_agents,
             resample_policy=resample_policy,
             partners=partners,
         )
         self.env = env
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if sharding is None else sharding.device
         self._start_episode = start_episode
-        self._collect = make_fused_collect(env, num_envs, self.device)
+        self._global_envs = num_envs
+        self._collect = make_fused_collect(env, num_envs, self.device, mesh=sharding)
         self.observation_space, self.share_observation_space, self.action_space = _spaces(env)
         self._reset_batch()
 
     def _reset_batch(self) -> StepOutput:
-        bstate, self.last_out = batched_reset(self.env, self.num_envs, self._start_episode,
-                                              device=self.device)
+        bstate, self.last_out = batched_reset(self.env, self._global_envs, self._start_episode,
+                                              device=self.device, mesh=self.mesh)
         self._carry = self._collect.pack(bstate)
         return self.last_out
 
     @property
     def bstate(self) -> BatchState:
-        """The batch state in ``core/batch.py``'s layout (unpacked on read;
-        assigning one packs it)."""
+        """The batch state in ``core/batch.py``'s layout (unpacked on read,
+        by every rank of a mesh together; assigning one packs it)."""
         return self._collect.unpack(self._carry)
 
     @bstate.setter

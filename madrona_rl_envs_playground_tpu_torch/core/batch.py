@@ -10,11 +10,18 @@ works on the whole batch at once (``init_core``, ``transition`` and
 * the episode counter is a uint32 that advances by ``sum(done)``; world w of
   the batch is handed index ``counter + (number of done worlds before w)``.
 
+On a ``mesh`` (``parallel/mesh.py``) the batch is this rank's rows of a
+global batch of N worlds, and the episode indices are those of the whole
+batch: world w of rank r starts as episode ``start + r N / R + w``, and on
+each step a rank first learns how many worlds of the ranks before it are
+done (one all-gather of a scalar), so the resets take the indices the
+single-process step hands them; the counter advances by the global sum.
+
 ``Simulator`` owns one batch, the counterpart of JAX's ``Simulator`` (the
 reference Manager's analog): plain ``batched_reset``/``batched_step`` on the
-chosen device, with no jit and no sharding.  On the card it steps the plain
-env on CUDA tensors: the general path for every env, as JAX's ``jnp`` route
-is, not a kernel's fallback.
+chosen device, with no jit; ``mesh`` takes the place of JAX's ``sharding``.
+On the card it steps the plain env on CUDA tensors: the general path for
+every env, as JAX's ``jnp`` route is, not a kernel's fallback.
 """
 
 from __future__ import annotations
@@ -41,41 +48,49 @@ def select_state(done: torch.Tensor, a, b):
 
 
 def batched_reset(env, num_envs: int, start_episode: int = 0,
-                  device: DeviceLike = None) -> Tuple[BatchState, StepOutput]:
-    """Construct N worlds; world w gets episode index ``start_episode + w``."""
-    dev = resolve_device(device)
-    eps = (torch.arange(num_envs, dtype=torch.int64, device=dev)
+                  device: DeviceLike = None, mesh=None) -> Tuple[BatchState, StepOutput]:
+    """Construct N worlds; world w gets episode index ``start_episode + w``.
+    On a ``mesh``, ``num_envs`` is the global N and the batch this rank's
+    rows of it (``device`` is then the mesh's)."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    rows = slice(0, num_envs) if mesh is None else mesh.rows(num_envs)
+    n = rows.stop - rows.start
+    eps = (torch.arange(rows.start, rows.stop, dtype=torch.int64, device=dev)
            + start_episode) & _MASK32
     states = env.init_core(eps)
-    just_reset = torch.ones(num_envs, dtype=torch.bool, device=dev)
+    just_reset = torch.ones(n, dtype=torch.bool, device=dev)
     states, obs, state_obs, mask, active = env.encode(states, just_reset)
     out = StepOutput(
         obs=obs,
         state_obs=state_obs,
         action_mask=mask,
         active=active,
-        reward=torch.zeros((num_envs, env.num_agents), dtype=env.reward_dtype,
-                           device=dev),
-        done=torch.zeros(num_envs, dtype=torch.bool, device=dev),
+        reward=torch.zeros((n, env.num_agents), dtype=env.reward_dtype, device=dev),
+        done=torch.zeros(n, dtype=torch.bool, device=dev),
     )
     counter = torch.tensor((start_episode + num_envs) & _MASK32,
                            dtype=torch.int64, device=dev)
     return BatchState(env_states=states, episode_counter=counter), out
 
 
-def batched_step(env, bstate: BatchState,
-                 actions: torch.Tensor) -> Tuple[BatchState, StepOutput]:
+def batched_step(env, bstate: BatchState, actions: torch.Tensor,
+                 mesh=None) -> Tuple[BatchState, StepOutput]:
     """One lockstep step of all worlds with in-step auto-reset.
 
-    actions: int [N, P].
+    actions: int [N, P] (on a ``mesh``, this rank's rows).
     """
     s2, reward, done = env.transition(bstate.env_states, actions)
 
-    # episode indices in world order (the reference's fetch_add sequence)
+    # episode indices in world order (the reference's fetch_add sequence),
+    # after the done worlds of the ranks before this one
     done_i = done.to(torch.int64)
     rank = torch.cumsum(done_i, 0) - done_i
+    n_done = done_i.sum()
+    if mesh is not None:
+        before, n_done = mesh.exclusive_scan(n_done)
+        rank = rank + before
     eps = (bstate.episode_counter + rank) & _MASK32
-    counter2 = (bstate.episode_counter + done_i.sum()) & _MASK32
+    counter2 = (bstate.episode_counter + n_done) & _MASK32
 
     fresh = env.init_core(eps)
     s3 = select_state(done, fresh, s2)
@@ -92,23 +107,27 @@ class Simulator:
     ``step(actions)`` (int ``[N, P]``, world-major) advances every world and
     returns the ``StepOutput``; ``reset()`` rebuilds the batch from
     ``start_episode``.  ``bstate`` and ``last_out`` hold the current state
-    and the latest output."""
+    and the latest output.  On a ``mesh`` they hold this rank's rows of the
+    ``num_envs`` worlds, ``step`` takes this rank's actions, and every rank
+    steps together."""
 
     def __init__(self, env, num_envs: int, start_episode: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.env = env
         self.num_envs = num_envs
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self._start_episode = start_episode
-        self.bstate, self.last_out = batched_reset(env, num_envs, start_episode,
-                                                   device=self.device)
+        self.reset()
 
     def step(self, actions: torch.Tensor) -> StepOutput:
         actions = actions.to(device=self.device, dtype=torch.int32)
-        self.bstate, self.last_out = batched_step(self.env, self.bstate, actions)
+        self.bstate, self.last_out = batched_step(self.env, self.bstate, actions,
+                                                  mesh=self.mesh)
         return self.last_out
 
     def reset(self) -> StepOutput:
         self.bstate, self.last_out = batched_reset(self.env, self.num_envs,
-                                                   self._start_episode, device=self.device)
+                                                   self._start_episode, device=self.device,
+                                                   mesh=self.mesh)
         return self.last_out

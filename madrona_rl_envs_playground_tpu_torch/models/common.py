@@ -9,7 +9,7 @@ helpers.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,10 +49,19 @@ def dist_entropy(logits: torch.Tensor) -> torch.Tensor:
     return -(lp.exp() * lp).sum(-1)
 
 
-def dist_sample(generator: Optional[torch.Generator],
-                logits: torch.Tensor) -> torch.Tensor:
-    """One categorical draw per row, int32.  The stream differs from JAX's
-    threefry draws, so tests inject actions instead of comparing samples."""
-    probs = F.softmax(logits.float(), dim=-1).reshape(-1, logits.shape[-1])
-    a = torch.multinomial(probs, 1, generator=generator)
+def dist_sample(generator: Optional[torch.Generator], logits: torch.Tensor,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """One categorical draw per row, int32, by the Gumbel-max rule JAX's
+    ``categorical`` uses: the argmax of the logits plus Gumbel noise made
+    from uniforms of ``generator``.  ``rows = (start, total)`` says that the
+    logits are rows ``start..`` of a batch of ``total`` rows (one rank's
+    share of a batch split over a mesh): the noise is drawn for the whole
+    batch and these rows of it are taken, so the draws do not depend on how
+    the batch is split.  The stream differs from JAX's threefry draws, so
+    tests inject actions instead of comparing samples."""
+    flat = logits.float().reshape(-1, logits.shape[-1])
+    start, total = rows if rows is not None else (0, flat.shape[0])
+    u = torch.rand((total, flat.shape[1]), generator=generator, device=flat.device)
+    gumbel = -torch.log(-torch.log(u[start:start + flat.shape[0]]))
+    a = torch.argmax(flat + gumbel, dim=-1)
     return a.reshape(logits.shape[:-1]).to(torch.int32)

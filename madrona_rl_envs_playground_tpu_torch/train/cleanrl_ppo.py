@@ -104,16 +104,29 @@ def init_carry(num_steps: int, num_envs: int, obs_size: int, state_size: int,
 
 
 def active_masked_gae(buf: Rollout, next_value: torch.Tensor, next_done: torch.Tensor,
-                      final_active: torch.Tensor, gamma: float, gae_lambda: float
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      final_active: torch.Tensor, gamma: float, gae_lambda: float,
+                      mesh=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reference's active-mask GAE loop (``vectoragent.py:230-262``) as a
     reverse loop over T.  A stream's active slot bootstraps from the
     stream's next active slot (or the final value where the stream is active
     after the rollout).  Scanning back from the end, while some stream has
     not been active yet, only a stream's first active slot is computed, and
     it is not trained; once every stream has been, every active slot is
-    computed and trained.  Returns (advantages [T, M], returns [T, M],
+    computed and trained.  "Every stream" is the whole batch: on a ``mesh``
+    (this rank's streams) the ranks add up, in one all-reduce, the streams
+    still waiting at each slot.  Returns (advantages [T, M], returns [T, M],
     trainable active [T, M] bool)."""
+    T = buf.values.shape[0]
+    # the streams not yet bootstrapped when the scan reaches slot t: active
+    # at no later slot and not after the rollout
+    waiting = torch.empty((T,), dtype=torch.int64, device=final_active.device)
+    booted = final_active
+    for t in range(T - 1, -1, -1):
+        waiting[t] = (~booted).sum()
+        booted = booted | buf.active[t]
+    if mesh is not None:
+        waiting = mesh.all_reduce(waiting, what="gae")
+    every_booted = waiting == 0
     bootstrapped = final_active
     nextnonterminal = torch.where(final_active, 1.0 - next_done.float(),
                                   torch.zeros_like(next_value))
@@ -123,7 +136,7 @@ def active_masked_gae(buf: Rollout, next_value: torch.Tensor, next_done: torch.T
     active_out = torch.empty_like(buf.active)
     for t in range(buf.values.shape[0] - 1, -1, -1):
         mask_t = buf.active[t]
-        all_boot = bootstrapped.all()
+        all_boot = every_booted[t]
         bootmask = mask_t & ~bootstrapped
         computemask = torch.where(all_boot, mask_t, bootmask)
         active_out[t] = mask_t & ~(bootmask & ~all_boot)

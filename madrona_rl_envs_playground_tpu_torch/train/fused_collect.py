@@ -15,6 +15,15 @@ Where no kernel applies, ``make_fused_collect`` returns the plain collector
 trainers always step through a collector.  Pack and unpack run once per
 rollout, not once per step.  The episode counter stays a uint32 in an int64
 scalar tensor on the device, wrapping at 2^32 as ``core/batch.py``'s does.
+
+On a ``mesh`` (``parallel/mesh.py``; ``num_envs`` the global N, the batch
+this rank's rows), JAX's rule holds: Overcooked steps its kernel, K1, on
+each rank's shard, since its resets draw no episode index, so each rank is
+exact with no collective in the step (the counter adds up the ranks' done
+worlds once, at ``unpack``).  The other envs allocate episode indices
+across the whole batch inside their kernels, which a rank cannot do without
+the counts of the ranks before it: on a mesh they take the plain collector,
+``batched_step`` with the mesh's offsets, as JAX takes its ``jnp`` path.
 """
 
 from __future__ import annotations
@@ -45,10 +54,18 @@ class FusedCollect:
     kernel: bool = True  # False: the plain ``batched_step``
 
 
-def make_fused_collect(env, num_envs: int, device: DeviceLike = None) -> FusedCollect:
+def make_fused_collect(env, num_envs: int, device: DeviceLike = None,
+                       mesh=None) -> FusedCollect:
     """The env's collector on ``device`` (default ``"cuda"``), or the plain
     one where no kernel applies (an Overcooked layout outside the kernels'
-    envelope, Hanabi of more than two players; JAX returns None there)."""
+    envelope, Hanabi of more than two players; JAX returns None there).  On
+    a ``mesh``, this rank's shard of ``num_envs`` worlds on the mesh's
+    device: K1 for Overcooked, the plain collector for the rest."""
+    if mesh is not None:
+        n = mesh.local_size(num_envs)
+        if isinstance(env, OvercookedEnv) and ok.fused_supported(env):
+            return _overcooked_collect(env, n, mesh.device, mesh)
+        return _plain_collect(env, mesh)
     dev = resolve_device(device)
     if isinstance(env, OvercookedEnv) and ok.fused_supported(env):
         return _overcooked_collect(env, num_envs, dev)
@@ -60,9 +77,13 @@ def make_fused_collect(env, num_envs: int, device: DeviceLike = None) -> FusedCo
         return _balance_collect(env, num_envs, dev)
     if isinstance(env, hanabi.Env) and hk.fused_supported(env):
         return _hanabi_collect(env, num_envs, dev)
+    return _plain_collect(env)
+
+
+def _plain_collect(env, mesh=None) -> FusedCollect:
     ident = lambda x: x  # noqa: E731
-    return FusedCollect(pack=ident, step=lambda c, a: batched_step(env, c, a), unpack=ident,
-                        kernel=False)
+    return FusedCollect(pack=ident, step=lambda c, a: batched_step(env, c, a, mesh=mesh),
+                        unpack=ident, kernel=False)
 
 
 def _constant_outputs(env, num_envs: int, dev: torch.device):
@@ -72,26 +93,30 @@ def _constant_outputs(env, num_envs: int, dev: torch.device):
             torch.ones((num_envs, P), dtype=torch.bool, device=dev))
 
 
-def _overcooked_collect(env, num_envs: int, dev: torch.device) -> FusedCollect:
+def _overcooked_collect(env, num_envs: int, dev: torch.device, mesh=None) -> FusedCollect:
     mask, active = _constant_outputs(env, num_envs, dev)
 
+    # resets draw no episode index; the counter only tracks allocation: the
+    # carry holds the counter at pack and this rank's done worlds since, and
+    # unpack adds up the ranks' (one collective a rollout on a mesh)
     def pack(bstate: BatchState):
-        return ok.pack_state(env, bstate.env_states), bstate.episode_counter
+        return (ok.pack_state(env, bstate.env_states), bstate.episode_counter,
+                torch.zeros((), dtype=torch.int64, device=dev))
 
     def step(carry, actions: torch.Tensor):
-        ts, counter = carry
+        ts, counter, n_done = carry
         actions_t = actions.t().to(torch.int32).contiguous()
         ts2, obs, rew, done = ok.fused_step(env, ts, actions_t)
         out = StepOutput(obs=obs, state_obs=obs, action_mask=mask,
                          active=active, reward=rew.t(), done=done)
-        # resets draw no episode index; the counter only tracks allocation
-        counter = (counter + done.sum()) & _MASK32
-        return (ts2, counter), out
+        return (ts2, counter, n_done + done.sum()), out
 
     def unpack(carry):
-        ts, counter = carry
+        ts, counter, n_done = carry
+        if mesh is not None:
+            n_done = mesh.all_reduce(n_done, what="episodes")
         return BatchState(env_states=ok.unpack_state(env, ts),
-                          episode_counter=counter)
+                          episode_counter=(counter + n_done) & _MASK32)
 
     return FusedCollect(pack=pack, step=step, unpack=unpack)
 

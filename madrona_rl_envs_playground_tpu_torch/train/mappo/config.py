@@ -67,7 +67,8 @@ class MAPPOConfig:
     ppo_epoch: int = 15
     clip_param: float = 0.2
     num_mini_batch: int = 1
-    # minibatches as permuted timestep bands for a mesh (ROADMAP item 13)
+    # minibatches as permuted timestep bands, which keep the env axis of a
+    # mesh local
     shard_local_minibatch: bool = False
     entropy_coef: float = 0.01
     value_loss_coef: float = 1.0

@@ -10,7 +10,10 @@ decays, scaled by the learning rate), each behind optax's global-norm clip
 (``train/optim.py``, applied by the trainer before the step), and the
 linear learning-rate decay.  The JAX policy keeps its state in a pytree;
 here the modules and optimizers hold it.  Sampling goes through
-``models/common.dist_sample`` with an explicit ``torch.Generator``.
+``models/common.dist_sample`` with an explicit ``torch.Generator``.  On a
+mesh the entropy is the mean over the whole batch (``evaluate_actions``'s
+``mesh``) and ``get_actions`` takes this rank's rows of the noise drawn for
+the whole batch (``rows``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from ...device import DeviceLike, resolve_device
 from ...models.common import dist_entropy, dist_log_prob, dist_sample
 from ...models.mappo_nets import R_Actor, R_Critic
+from ..optim import GlobalMean
 from .config import MAPPOConfig
 
 
@@ -50,15 +54,17 @@ class MAPPOPolicy:
     def get_actions(self, share_obs, obs, rnn_states, rnn_states_critic, masks,
                     available_actions=None, deterministic: bool = False,
                     generator: Optional[torch.Generator] = None,
-                    actions: Optional[torch.Tensor] = None):
+                    actions: Optional[torch.Tensor] = None,
+                    rows: Optional[Tuple[int, int]] = None):
         """All inputs flat ``[B, ...]``, rnn states ``[B, L, H]``, masks
         ``[B]``.  ``actions``, when given, replaces the sampled ones (tests
-        drive both packages with the same actions).  Returns (values,
-        actions, log_probs, rnn_states', rnn_states_critic')."""
+        drive both packages with the same actions).  ``rows`` is
+        ``dist_sample``'s.  Returns (values, actions, log_probs,
+        rnn_states', rnn_states_critic')."""
         logits, rnn2 = self.actor(obs, rnn_states, masks, available_actions)
         if actions is None:
             actions = (torch.argmax(logits, -1).to(torch.int32) if deterministic
-                       else dist_sample(generator, logits))
+                       else dist_sample(generator, logits, rows))
         logp = dist_log_prob(logits, actions)
         values, rnnc2 = self.critic(share_obs, rnn_states_critic, masks)
         return values, actions, logp, rnn2, rnnc2
@@ -67,9 +73,11 @@ class MAPPOPolicy:
         return self.critic(share_obs, rnn_states_critic, masks)[0]
 
     def evaluate_actions(self, share_obs, obs, rnn_states, rnn_states_critic, actions, masks,
-                         available_actions=None, active_masks=None, sequence: bool = False):
+                         available_actions=None, active_masks=None, sequence: bool = False,
+                         mesh=None):
         """Returns (values, log_probs, entropy), the entropy a scalar (its
-        mean over the active samples where ``use_policy_active_masks``).
+        mean over the active samples where ``use_policy_active_masks``; on
+        a ``mesh``, this rank's share of the mean over the whole batch).
         With ``sequence=True`` the inputs are ``[L, B, ...]``, the rnn states
         ``[B, L_rnn, H]`` at each sequence's first step, and the GRU is
         unrolled."""
@@ -82,9 +90,9 @@ class MAPPOPolicy:
         logp = dist_log_prob(logits, actions)
         ent = dist_entropy(logits)
         if self.cfg.use_policy_active_masks and active_masks is not None:
-            entropy = (ent * active_masks).sum() / active_masks.sum()
+            entropy = GlobalMean(mesh, weights=active_masks)(ent)
         else:
-            entropy = ent.mean()
+            entropy = GlobalMean(mesh, like=ent)(ent)
         return values, logp, entropy
 
     def lr_for(self, episode: int, episodes: int) -> Tuple[float, float]:

@@ -31,8 +31,17 @@ states (Adam or AdamW) and the ValueNorm statistics, and beside it the nets'
 ``ModelConfig``; ``restore`` also takes one with parameters and ValueNorm
 only.  JAX's pickled checkpoint holds
 optax states and does not load here: its weights cross through
-``models/mappo_nets.py::load_mappo_params``.  Left to a later item: the mesh
-(item 13).
+``models/mappo_nets.py::load_mappo_params``.
+
+On a ``mesh`` (``parallel/mesh.py``) each rank holds its rows of the
+``n_rollout_threads`` envs (``bstate``, ``out``, the hidden states and the
+masks), steps them through the mesh's collector (K1 for Overcooked), takes
+its rows of the noise the sampler draws for the whole batch, and trains the
+replicated nets on its streams (``RMAPPOTrainer``'s mesh); the episode score
+is the whole batch's.  ``evaluate`` runs on rank 0 over the whole batch and
+hands every rank its score; rank 0 logs and writes the checkpoints, and
+``restore`` reads on rank 0.  Every rank calls ``run``, ``update``,
+``evaluate``, ``save`` and ``restore`` together.
 """
 
 from __future__ import annotations
@@ -47,9 +56,12 @@ import torch
 from ...core.batch import batched_reset
 from ...device import DeviceLike, resolve_device
 from ...models.common import dist_sample
+from ...parallel.launch import is_primary
+from ...parallel.mesh import shard_batch_pytree
 from ...utils.checkpoint import load_pytree, save_pytree
 from ...utils.logger import ScalarLogger
 from ..fused_collect import make_fused_collect
+from ..optim import all_sum
 from .buffer import MAPPOBuffer, compute_returns, init_buffer
 from .config import MAPPOConfig
 from .policy import MAPPOPolicy
@@ -59,12 +71,16 @@ from .valuenorm import ValueNormState
 
 class MAPPORunner:
     def __init__(self, cfg: MAPPOConfig, env, run_dir: Optional[str] = None,
-                 device: DeviceLike = None):
-        self.device = dev = resolve_device(device)
+                 device: DeviceLike = None, mesh=None):
+        self.device = dev = resolve_device(device) if mesh is None else mesh.device
         self.cfg = cfg
         self.env = env
+        self.mesh = mesh
         self.N = cfg.n_rollout_threads
         self.A = env.num_agents
+        # this rank's envs of the whole batch
+        self._rows = slice(0, self.N) if mesh is None else mesh.rows(self.N)
+        self.n_local = self._rows.stop - self._rows.start
         obs_shape, share_obs_shape = (env.obs_size,), (env.state_size,)
         if cfg.use_cnn_obs:
             # grid envs only: the flat obs is (x, y, c)-ordered, so the
@@ -78,19 +94,24 @@ class MAPPORunner:
                 share_obs_shape = obs_shape
         self.policy = MAPPOPolicy(cfg, obs_shape=obs_shape, share_obs_shape=share_obs_shape,
                                   num_actions=env.num_actions, seed=cfg.seed, device=dev)
-        self.trainer = RMAPPOTrainer(cfg, self.policy)
+        self.trainer = RMAPPOTrainer(cfg, self.policy, mesh=mesh)
         self.run_dir = run_dir
-        self.logger = ScalarLogger(run_dir) if run_dir else None
+        self.logger = ScalarLogger(run_dir) if run_dir and is_primary() else None
         self.sample_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         self.bstate, self.out = batched_reset(env, self.N, device=dev)
+        if mesh is not None:
+            mesh.broadcast_module_(self.policy.actor)
+            mesh.broadcast_module_(self.policy.critic)
+            self.bstate, self.out = shard_batch_pytree((self.bstate, self.out), mesh)
+        B = self.n_local * self.A
         # 0 where the env's last step ended an episode (the buffer's slot T)
-        self._masks = torch.ones((self.N * self.A,), device=dev)
+        self._masks = torch.ones((B,), device=dev)
         # the hidden states (JAX keeps width-1 placeholders where the policy
         # is feed-forward, and so does the port)
-        self._rnn = self.policy.actor.zero_states(self.N * self.A, dev)
-        self._rnnc = self.policy.critic.zero_states(self.N * self.A, dev)
+        self._rnn = self.policy.actor.zero_states(B, dev)
+        self._rnnc = self.policy.critic.zero_states(B, dev)
         self._rnn_shape = tuple(self._rnn.shape)
-        self._fused = make_fused_collect(env, self.N, dev)
+        self._fused = make_fused_collect(env, self.N, dev, mesh=mesh)
         self.episode_rewards = []  # average episode score of each update
 
     # ------------------------------------------------------------------
@@ -98,10 +119,12 @@ class MAPPORunner:
         """One ``episode_length`` rollout from the runner's carry, which it
         advances.  ``actions`` ([T, N, A] int), when given, replaces the
         sampled actions.  Returns the trajectory, ``[T, M, ...]`` with
-        M = N * A thread-major; a recurrent policy's also holds ``rnn`` and
-        ``rnnc``, each step's hidden states before it."""
-        cfg, N, A = self.cfg, self.N, self.A
+        M = N * A thread-major (on a mesh, this rank's envs and ``actions``
+        its rows); a recurrent policy's also holds ``rnn`` and ``rnnc``, each
+        step's hidden states before it."""
+        cfg, N, A = self.cfg, self.n_local, self.A
         B, T, dev = N * A, cfg.episode_length, self.device
+        rows = (self._rows.start * A, self.N * A)
         carry, out, masks = self._fused.pack(self.bstate), self.out, self._masks
         rnn, rnnc, recurrent = self._rnn, self._rnnc, self.policy.recurrent
         env = self.env
@@ -130,7 +153,7 @@ class MAPPORunner:
                     device=dev, dtype=torch.int32)
                 values, act, logp, rnn2, rnnc2 = self.policy.get_actions(
                     sobs, obs, rnn, rnnc, masks, avail, generator=self.sample_gen,
-                    actions=injected)
+                    actions=injected, rows=rows)
                 carry, out2 = self._fused.step(carry, act.reshape(N, A))
                 done_b = out2.done[:, None].expand(N, A).reshape(B)
                 masks2 = 1.0 - done_b.float()
@@ -149,7 +172,7 @@ class MAPPORunner:
         return tr
 
     def _compute(self, buf: MAPPOBuffer) -> MAPPOBuffer:
-        B = self.N * self.A
+        B = self.n_local * self.A
         with torch.no_grad():
             next_value = self.policy.get_values(self.out.state_obs.reshape(B, -1),
                                                 self._rnnc, self._masks)
@@ -160,7 +183,7 @@ class MAPPORunner:
 
     def _tr_to_buffer(self, tr: Dict[str, torch.Tensor], final_masks: torch.Tensor,
                       final_active: torch.Tensor) -> MAPPOBuffer:
-        cfg, env, N, A = self.cfg, self.env, self.N, self.A
+        cfg, env, N, A = self.cfg, self.env, self.n_local, self.A
         L, H = self._rnn_shape[1:]
         buf = init_buffer(cfg.episode_length, N, A, env.obs_size, env.state_size,
                           env.num_actions, L, H, obs_dtype=env.obs_dtype, device=self.device)
@@ -183,16 +206,20 @@ class MAPPORunner:
         buf.available_actions[:-1] = tr["avail"]
         return buf
 
-    def update(self, episode: int, episodes: int, actions: Optional[torch.Tensor] = None):
-        """One update: collect, compute, train.  Returns (train info, the
-        average episode score: seat 0's reward summed over the rollout, per
-        env)."""
+    def update(self, episode: int, episodes: int, actions: Optional[torch.Tensor] = None,
+               perms=None):
+        """One update: collect, compute, train.  ``actions`` and ``perms``,
+        where given, replace the sampled actions (``_collect``) and the
+        minibatch permutations (``trainer.train``), so that tests drive both
+        packages alike.  Returns (train info, the average episode score: seat
+        0's reward summed over the rollout, per env of the whole batch)."""
         lrs = self.policy.lr_for(episode, episodes)
         tr = self._collect(actions)
         buf = self._tr_to_buffer(tr, self._masks, self.out.active.float())
         buf = self._compute(buf)
-        info = self.trainer.train(buf, lrs)
-        ep_rew = float(tr["rewards"].reshape(-1, self.N, self.A)[:, :, 0].sum()) / self.N
+        info = self.trainer.train(buf, lrs, perms)
+        seat0 = tr["rewards"].reshape(-1, self.n_local, self.A)[:, :, 0].sum()
+        ep_rew = float(all_sum(self.mesh, seat0, "metrics")) / self.N
         return info, ep_rew
 
     # ------------------------------------------------------------------
@@ -212,7 +239,8 @@ class MAPPORunner:
                 for k, v in info.items():
                     self.logger.add_scalar(f"mappo/{k}", float(v), steps)
                 self.logger.flush()
-            if log is not None and ((ep + 1) % cfg.log_interval == 0 or ep == episodes - 1):
+            if log is not None and is_primary() and ((ep + 1) % cfg.log_interval == 0
+                                                     or ep == episodes - 1):
                 fps = steps / (time.time() - t0)
                 log(f"episode {ep + 1}/{episodes} steps={steps} avg_ep_reward={ep_rew:.2f} "
                     f"vloss={float(info['value_loss']):.4f} "
@@ -224,7 +252,7 @@ class MAPPORunner:
                 if self.logger is not None:
                     self.logger.add_scalar("mappo/eval_score", score, steps)
                     self.logger.flush()
-                if log is not None:
+                if log is not None and is_primary():
                     log(f"eval @ episode {ep + 1}: deterministic score {score:.3f}")
         return info
 
@@ -234,21 +262,29 @@ class MAPPORunner:
         ValueNorm statistics to ``<path or run_dir>/checkpoint.pt``, so that a
         restored run resumes training rather than restarting Adam, and the
         nets' ``ModelConfig``, so that an exporter rebuilds the actor as
-        trained (the activation leaves no parameter)."""
+        trained (the activation leaves no parameter).  Rank 0 writes."""
         pol, vn = self.policy, self.trainer.vn
-        save_pytree(os.path.join(path or self.run_dir, "checkpoint.pt"), {
-            "model_config": dataclasses.asdict(pol.mc),
-            "actor_params": pol.actor.state_dict(),
-            "critic_params": pol.critic.state_dict(),
-            "actor_opt": pol.actor_opt.state_dict(),
-            "critic_opt": pol.critic_opt.state_dict(),
-            "vn": {f.name: getattr(vn, f.name) for f in dataclasses.fields(vn)},
-        })
+        if is_primary():
+            save_pytree(os.path.join(path or self.run_dir, "checkpoint.pt"), {
+                "model_config": dataclasses.asdict(pol.mc),
+                "actor_params": pol.actor.state_dict(),
+                "critic_params": pol.critic.state_dict(),
+                "actor_opt": pol.actor_opt.state_dict(),
+                "critic_opt": pol.critic_opt.state_dict(),
+                "vn": {f.name: getattr(vn, f.name) for f in dataclasses.fields(vn)},
+            })
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def restore(self, path: Optional[str] = None) -> None:
         """Load a ``save``; a checkpoint without the optimizer states
-        (parameters and ValueNorm only) keeps the runner's own."""
-        blob = load_pytree(os.path.join(path or self.run_dir, "checkpoint.pt"))
+        (parameters and ValueNorm only) keeps the runner's own.  Rank 0
+        reads."""
+        file = os.path.join(path or self.run_dir, "checkpoint.pt")
+        if self.mesh is None:
+            blob = load_pytree(file)
+        else:
+            blob = self.mesh.broadcast_object(load_pytree(file) if is_primary() else None)
         pol, dev = self.policy, self.device
         pol.actor.load_state_dict(blob["actor_params"])
         pol.critic.load_state_dict(blob["critic_params"])
@@ -264,11 +300,19 @@ class MAPPORunner:
         episode and env.  Steps through the env's collector where it has one,
         whose outputs equal ``batched_step``'s.  The actor starts from zero
         states and carries them, zeroed where an episode ended, as
-        ``_collect`` does."""
+        ``_collect`` does.  On a mesh rank 0 runs it over the whole batch and
+        every rank returns its score."""
+        if self.mesh is not None:
+            score = self._evaluate(make_fused_collect(self.env, self.N, self.device),
+                                   episodes, deterministic) if is_primary() else None
+            return self.mesh.broadcast_object(score)
+        return self._evaluate(self._fused, episodes, deterministic)
+
+    def _evaluate(self, collect, episodes: int, deterministic: bool) -> float:
         cfg, N, A, dev = self.cfg, self.N, self.A, self.device
         B = N * A
         bstate, out = batched_reset(self.env, N, start_episode=10_000_000, device=dev)
-        carry = self._fused.pack(bstate)
+        carry = collect.pack(bstate)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed + 777)
         total = torch.zeros((), dtype=torch.float64, device=dev)
         actor = self.policy.actor
@@ -279,7 +323,7 @@ class MAPPORunner:
                 logits, rnn = actor(obs, rnn, masks, avail)
                 act = (torch.argmax(logits, -1).to(torch.int32) if deterministic
                        else dist_sample(gen, logits))
-                carry, out = self._fused.step(carry, act.reshape(N, A))
+                carry, out = collect.step(carry, act.reshape(N, A))
                 total += out.reward[:, 0].sum(dtype=torch.float64)
                 masks = 1.0 - out.done[:, None].expand(N, A).reshape(B).float()
                 rnn = rnn * masks[:, None, None]

@@ -10,7 +10,9 @@ Counterpart of ``RMAPPOTrainer`` in
 * ``ppo_epoch`` x ``num_mini_batch`` updates on random permutations of the
   flat batch; with one minibatch the whole ``[T, M]`` batch, unshuffled
   (every reduction is order-free, so the reference's shuffle changes
-  nothing there);
+  nothing there); with ``shard_local_minibatch``, minibatches of permuted
+  timestep bands ``[T / num_mini_batch, M, ...]`` from one permutation of
+  T a epoch, which never cut across the env axis;
 * recurrent (``_train_recurrent``, reference ``shared_buffer.py:393-502``):
   the ``[T, M]`` buffer cut into ``C = (T / L) * M`` chunks of ``L =
   data_chunk_length`` steps (``L = T`` for the naive form), chunk-major as
@@ -24,17 +26,24 @@ Counterpart of ``RMAPPOTrainer`` in
   reference's ``cal_value_loss``; each network behind its own global-norm
   clip and Adam.
 
-``shard_local_minibatch`` waits for the mesh (ROADMAP queue 1, item 13).
+On a mesh (``parallel/mesh.py``; the buffer holds this rank's streams) the
+advantage normalisation, the ValueNorm moments, every loss and the metrics
+are over the whole batch (``train/optim.py``'s ``GlobalMean``), and the
+gradients of both networks are summed over the ranks before their clips.
+The env axis stays local with one minibatch and with timestep bands; other
+minibatches draw from the whole batch, so there the buffers are gathered
+and every rank runs the same update on all of it, as JAX's all-gather does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ...models.mappo_nets import get_critic_head
-from ..optim import clip_grad_global_norm_
+from ..optim import GlobalMean, all_reduce_grads, all_sum, clip_grad_global_norm_
 from .buffer import MAPPOBuffer
 from .config import MAPPOConfig
 from .policy import MAPPOPolicy
@@ -48,29 +57,36 @@ def huber(e: torch.Tensor, delta: float) -> torch.Tensor:
 
 
 class RMAPPOTrainer:
-    def __init__(self, cfg: MAPPOConfig, policy: MAPPOPolicy):
+    def __init__(self, cfg: MAPPOConfig, policy: MAPPOPolicy, mesh=None):
         if cfg.use_popart and cfg.use_valuenorm:
             raise ValueError("use_popart and use_valuenorm are exclusive")
-        if cfg.shard_local_minibatch:
-            raise NotImplementedError("shard_local_minibatch needs the mesh, which is not "
-                                      "ported yet: ROADMAP queue 1, item 13")
         self.cfg = cfg
         self.policy = policy
+        self.mesh = mesh
         self.recurrent = cfg.use_recurrent_policy or cfg.use_naive_recurrent_policy
         self.vn: ValueNormState = init_valuenorm(policy.device)
         self.generator = torch.Generator(device=policy.device).manual_seed(cfg.seed)
+
+    @property
+    def _update_mesh(self):
+        """The mesh an update's means and gradient sums run over: None where
+        the minibatches draw from the whole batch (more than one, and not
+        timestep bands), so that ``train`` gathers the buffers and every
+        rank runs the same update on all of it."""
+        bands = self.cfg.shard_local_minibatch and not self.recurrent
+        return self.mesh if self.cfg.num_mini_batch == 1 or bands else None
 
     def _normalized(self) -> bool:
         return self.cfg.use_popart or self.cfg.use_valuenorm
 
     def _value_loss(self, vn, values, value_preds_b, return_b, active_b,
                     stats_updated: bool = False):
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self._update_mesh
         clipped = value_preds_b + torch.clamp(values - value_preds_b, -cfg.clip_param,
                                               cfg.clip_param)
         if self._normalized():
             if not stats_updated:
-                vn = vn_update(vn, return_b)
+                vn = vn_update(vn, return_b, mesh=mesh)
             target = vn_normalize(vn, return_b)
         else:
             target = return_b
@@ -81,9 +97,9 @@ class RMAPPOTrainer:
             l_clip, l_orig = 0.5 * err_clip ** 2, 0.5 * err_orig ** 2
         loss = torch.maximum(l_orig, l_clip) if cfg.use_clipped_value_loss else l_orig
         if cfg.use_value_active_masks:
-            vl = (loss * active_b).sum() / active_b.sum()
+            vl = GlobalMean(mesh, weights=active_b)(loss)
         else:
-            vl = loss.mean()
+            vl = GlobalMean(mesh, like=loss)(loss)
         return vl, vn
 
     def _ppo_update(self, sample: Sequence[Optional[torch.Tensor]], sequence: bool = False):
@@ -94,8 +110,9 @@ class RMAPPOTrainer:
         update where enabled, then one optimizer step of the actor and one of
         the critic.  ``sequence``: the fields are ``[L, B, ...]`` and the
         rnn states those of each sequence's first step.  Returns (value
-        loss, policy loss, entropy, mean ratio), detached."""
-        cfg, pol = self.cfg, self.policy
+        loss, policy loss, entropy, mean ratio), detached (on a mesh, this
+        rank's shares)."""
+        cfg, pol, mesh = self.cfg, self.policy, self._update_mesh
         (sobs, obs, rnn, rnnc, act, vp, ret, msk, amsk, old_logp, adv, avail) = sample
         stats_updated = False
         if cfg.use_popart:
@@ -103,24 +120,27 @@ class RMAPPOTrainer:
             # the value head so that its outputs are preserved
             head = get_critic_head(pol.critic)
             with torch.no_grad():
-                k2, b2, self.vn = popart_update(head.weight[0], head.bias[0], self.vn, ret)
+                k2, b2, self.vn = popart_update(head.weight[0], head.bias[0], self.vn, ret,
+                                                mesh=mesh)
                 head.weight[0] = k2
                 head.bias[0] = b2
             stats_updated = True
 
         values, logp, entropy = pol.evaluate_actions(sobs, obs, rnn, rnnc, act, msk, avail, amsk,
-                                                     sequence=sequence)
+                                                     sequence=sequence, mesh=mesh)
         ratio = torch.exp(logp - old_logp)
         surr1 = ratio * adv
         surr2 = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * adv
         per = -torch.minimum(surr1, surr2)
-        pg_loss = (per * amsk).sum() / amsk.sum() if cfg.use_policy_active_masks else per.mean()
+        pg_loss = GlobalMean(mesh, **({"weights": amsk} if cfg.use_policy_active_masks
+                                      else {"like": per}))(per)
         v_loss, vn = self._value_loss(self.vn, values, vp, ret, amsk, stats_updated)
 
         pol.actor_opt.zero_grad(set_to_none=True)
         pol.critic_opt.zero_grad(set_to_none=True)
         (pg_loss - entropy * cfg.entropy_coef).backward()
         (v_loss * cfg.value_loss_coef).backward()
+        all_reduce_grads(mesh, list(pol.actor.parameters()) + list(pol.critic.parameters()))
         if cfg.use_max_grad_norm:
             clip_grad_global_norm_(pol.actor.parameters(), cfg.max_grad_norm)
             clip_grad_global_norm_(pol.critic.parameters(), cfg.max_grad_norm)
@@ -128,20 +148,24 @@ class RMAPPOTrainer:
         pol.critic_opt.step()
         self.vn = vn
         return torch.stack([v_loss.detach(), pg_loss.detach(), entropy.detach(),
-                            ratio.mean().detach()])
+                            GlobalMean(mesh, like=ratio)(ratio).detach()])
 
     def _advantages(self, buf: MAPPOBuffer) -> torch.Tensor:
         """Returns minus the denormalized predictions, normalized over the
-        active steps (population variance, the reference's ``np.nanstd``)."""
+        active steps (population variance, the reference's ``np.nanstd``),
+        of the whole batch on a mesh."""
+        mesh = self._update_mesh
         with torch.no_grad():
             vp = buf.value_preds[:-1]
             adv_raw = buf.returns[:-1] - (vn_denormalize(self.vn, vp) if self._normalized()
                                           else vp)
             active = buf.active_masks[:-1] > 0
-            n_act = torch.clamp(active.sum(), min=1)
+            n_act = torch.clamp(all_sum(mesh, active.sum(), "count"), min=1)
             zero = torch.zeros_like(adv_raw)
-            mean_adv = torch.where(active, adv_raw, zero).sum() / n_act
-            var_adv = torch.where(active, (adv_raw - mean_adv) ** 2, zero).sum() / n_act
+            mean_adv = all_sum(mesh, torch.where(active, adv_raw, zero).sum(),
+                               "advantage") / n_act
+            var_adv = all_sum(mesh, torch.where(active, (adv_raw - mean_adv) ** 2, zero).sum(),
+                              "advantage") / n_act
             return (adv_raw - mean_adv) / (torch.sqrt(var_adv) + 1e-5)
 
     def _set_lrs(self, lrs: Optional[Tuple[float, float]]) -> None:
@@ -162,19 +186,29 @@ class RMAPPOTrainer:
         """``ppo_epoch`` passes over ``buf``; ``lrs`` = (actor, critic)
         learning rates (default the config's).  Feed-forward, with
         ``num_mini_batch > 1`` each epoch draws a permutation of the ``T *
-        M`` samples from the trainer's generator, or takes ``perms[epoch]``
-        where given (tests replay JAX's order); recurrent, a permutation of
-        the chunks (``_train_recurrent``).  Returns the mean losses, entropy
-        and ratio."""
+        M`` samples (with ``shard_local_minibatch``, of the T timesteps)
+        from the trainer's generator, or takes ``perms[epoch]`` where given
+        (tests replay JAX's order); recurrent, a permutation of the chunks
+        (``_train_recurrent``).  Returns the mean losses, entropy and ratio
+        (on a mesh, of the whole batch, on every rank)."""
         self._set_lrs(lrs)
+        cfg, nmb = self.cfg, self.cfg.num_mini_batch
+        T = buf.rewards.shape[0]
+        local = cfg.shard_local_minibatch and nmb > 1 and not self.recurrent
+        if local and T % nmb:
+            raise ValueError(f"shard_local_minibatch needs episode_length ({T}) % "
+                             f"num_mini_batch ({nmb}) == 0")
+        if self.mesh is not None and self._update_mesh is None:
+            buf = MAPPOBuffer(**{f.name: self.mesh.all_gather(getattr(buf, f.name), dim=1,
+                                                              what="buffers")
+                                 for f in dataclasses.fields(buf)})
         if self.recurrent:
             return self._train_recurrent(buf, perms)
-        cfg = self.cfg
         T, M = buf.rewards.shape
         advantages = self._advantages(buf)
-        nmb = cfg.num_mini_batch
         B = T * M
-        flat = (lambda x: x) if nmb == 1 else (lambda x: x.reshape((B,) + x.shape[2:]))
+        flat = ((lambda x: x) if nmb == 1 or local
+                else (lambda x: x.reshape((B,) + x.shape[2:])))
         data = tuple(None if x is None else flat(x) for x in (
             buf.share_obs[:-1], buf.obs[:-1], None, None, buf.actions, buf.value_preds[:-1],
             buf.returns[:-1], None, buf.active_masks[:-1], buf.action_log_probs, advantages,
@@ -185,8 +219,11 @@ class RMAPPOTrainer:
             if nmb == 1:
                 epochs.append(self._ppo_update(data))
                 continue
-            mb = B // nmb
-            idxs = self._perm(epoch, B, perms)[: nmb * mb].reshape(nmb, mb)
+            if local:  # permuted timestep bands [T / nmb, M, ...]
+                idxs = self._perm(epoch, T, perms).reshape(nmb, T // nmb)
+            else:
+                mb = B // nmb
+                idxs = self._perm(epoch, B, perms)[: nmb * mb].reshape(nmb, mb)
             epochs.append(torch.stack([
                 self._ppo_update(tuple(None if d is None else d[idx] for d in data))
                 for idx in idxs]).mean(0))
@@ -237,7 +274,6 @@ class RMAPPOTrainer:
                 for idx in idxs]).mean(0))
         return self._info(epochs)
 
-    @staticmethod
-    def _info(epochs) -> Dict[str, torch.Tensor]:
-        m = torch.stack(epochs).mean(0)
+    def _info(self, epochs) -> Dict[str, torch.Tensor]:
+        m = all_sum(self._update_mesh, torch.stack(epochs).mean(0), "metrics")
         return {"value_loss": m[0], "policy_loss": m[1], "dist_entropy": m[2], "ratio": m[3]}

@@ -9,6 +9,10 @@ Counterpart of ``madrona_rl_envs_playground_tpu/train/mappo/valuenorm.py``:
 * ``popart_update``: the PopArt head update (reference ``utils/popart.py``),
   which rescales the critic's output layer so that its outputs survive the
   new statistics.  It shares the ValueNorm state.
+
+On a mesh (``parallel/mesh.py``) the batch moments are those of the whole
+batch: this rank's sums and the global count, summed over the ranks in one
+all-reduce.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Tuple
 import torch
 
 from ...device import DeviceLike, resolve_device
+from ..optim import all_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +48,13 @@ def _debiased_mean_var(s: ValueNormState, epsilon=1e-5) -> Tuple[torch.Tensor, t
 
 
 def vn_update(s: ValueNormState, x: torch.Tensor, beta: float = 0.99999,
-              per_element_update: bool = False) -> ValueNormState:
-    batch_mean = x.mean()
-    batch_sq_mean = (x ** 2).mean()
-    weight = beta ** float(math.prod(x.shape)) if per_element_update else beta
+              per_element_update: bool = False, mesh=None) -> ValueNormState:
+    """Fold the moments of ``x`` (on a ``mesh``, of the whole batch of which
+    ``x`` is this rank's rows) into the running statistics."""
+    n = math.prod(x.shape) * (1 if mesh is None else mesh.size)
+    batch_mean, batch_sq_mean = all_sum(mesh, torch.stack([x.sum(), (x ** 2).sum()]),
+                                        "valuenorm") / float(n)
+    weight = beta ** float(n) if per_element_update else beta
     return ValueNormState(
         running_mean=s.running_mean * weight + batch_mean * (1.0 - weight),
         running_mean_sq=s.running_mean_sq * weight + batch_sq_mean * (1.0 - weight),
@@ -65,14 +73,14 @@ def vn_denormalize(s: ValueNormState, x: torch.Tensor) -> torch.Tensor:
 
 
 def popart_update(kernel: torch.Tensor, bias: torch.Tensor, s: ValueNormState,
-                  x: torch.Tensor, beta: float = 0.99999):
+                  x: torch.Tensor, beta: float = 0.99999, mesh=None):
     """Update the statistics on ``x`` and rescale the value head so that its
     outputs are preserved (reference ``popart.py:49-73``).  ``kernel`` is
     the head's ``[H]`` weight row, ``bias`` its scalar bias.  Returns
     (kernel', bias', state')."""
     old_mean, old_var = _debiased_mean_var(s)
     old_std = torch.sqrt(old_var)
-    s2 = vn_update(s, x, beta=beta)
+    s2 = vn_update(s, x, beta=beta, mesh=mesh)
     new_mean, new_var = _debiased_mean_var(s2)
     new_std = torch.sqrt(new_var)
     kernel2 = kernel * old_std / new_std

@@ -27,8 +27,27 @@ reads ``state_obs`` where it is not the obs (``env.state_is_obs``).
 The JAX ``lax.scan`` loops become Python loops.  ``run`` drives updates and
 logs their metrics; ``save``/``load`` checkpoint the network, Adam and the
 sampler's generator state (JAX's ``key``) and, by default, the batched env
-state, so a restore resumes mid-stream exactly.  The mesh comes with a later
-slice.
+state, so a restore resumes mid-stream exactly.
+
+On a ``mesh`` (``parallel/mesh.py``) each rank holds its rows of the
+``num_envs`` worlds, steps them through the mesh's collector
+(``fused_collect.py``: K1 for Overcooked), and updates a replicated network:
+
+* the sampler draws its noise for the whole batch from ``sample_gen``,
+  whose state is the same on every rank, and takes this rank's rows, so the
+  actions do not depend on the number of ranks;
+* every mean (the advantage normalisation, the losses, the metrics) is over
+  the whole batch (``train/optim.py``'s ``GlobalMean``), and the gradients
+  are summed over the ranks before the clip;
+* the T-axis chunks stay rank-local; JAX's fallback for a minibatch count
+  that does not divide T merges the env axis, so there the buffers are
+  gathered and every rank runs the same update on the whole batch, as JAX's
+  all-gather does;
+* the credit routing and the GAE are per stream and stay local, but for
+  the masked GAE's one cross-stream question, whether every stream of the
+  batch has been active yet at a slot (one all-reduce of T counts);
+* ``save`` gathers the env state and writes on rank 0; ``load`` reads on
+  rank 0 and hands every rank its rows.  Every rank calls both.
 """
 
 from __future__ import annotations
@@ -42,10 +61,12 @@ from ..core.batch import batched_reset
 from ..device import DeviceLike, resolve_device
 from ..models.cleanrl import CleanRLNetwork
 from ..models.common import dist_entropy, dist_log_prob, dist_sample
+from ..parallel.launch import is_primary
+from ..parallel.mesh import gather_batch_pytree, put_selfplay_state, shard_batch_pytree
 from ..utils.checkpoint import load_pytree, save_pytree
 from .cleanrl_ppo import Rollout, active_masked_gae, plain_gae
 from .fused_collect import make_fused_collect
-from .optim import clip_grad_global_norm_
+from .optim import GlobalMean, all_reduce_grads, all_sum, clip_grad_global_norm_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,16 +127,21 @@ class SelfPlayPPO:
     """Owns the network, the optimizer and the batched env state.
 
     ``train_step()`` advances ``cfg.num_steps`` env steps and runs the PPO
-    update; it returns a dict of float32 scalar tensors.
+    update; it returns a dict of float32 scalar tensors.  ``num_envs`` is
+    the global batch; on a ``mesh`` the device is the mesh's and the state
+    this rank's rows.
     """
 
     def __init__(self, env, num_envs: int, cfg: SelfPlayConfig = SelfPlayConfig(),
-                 seed: int = 0, device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 seed: int = 0, device: DeviceLike = None, mesh=None):
+        self.device = resolve_device(device) if mesh is None else mesh.device
         if cfg.value_loss not in ("clipped_mse", "smooth_l1"):
             raise ValueError(f"unknown value_loss {cfg.value_loss!r}")
         self.env = env
         self.num_envs = num_envs
+        self.mesh = mesh
+        # this rank's worlds of the global batch
+        self._rows = slice(0, num_envs) if mesh is None else mesh.rows(num_envs)
         self.cfg = cfg
         # envs whose state_obs is the obs store one trajectory buffer, and
         # envs that never mask store no mask or active flags
@@ -132,19 +158,32 @@ class SelfPlayPPO:
         # Cartpole, Balance Beam, Acrobot, 2-player Hanabi) step through it;
         # the rest (e.g. many_player_layout-scale grids, 3-player Hanabi)
         # get the plain collector
-        self._fused = make_fused_collect(env, num_envs, self.device)
+        self._fused = make_fused_collect(env, num_envs, self.device, mesh=mesh)
         bstate, out = batched_reset(env, num_envs, device=self.device)
         self.state = {"bstate": bstate, "out": out}
+        if mesh is not None:
+            self.state = put_selfplay_state(self.state, mesh)
+            mesh.broadcast_module_(self.net)
+
+    @property
+    def _update_mesh(self):
+        """The mesh an update's means and gradient sums run over: None where
+        ``num_minibatches`` does not divide ``num_steps``, JAX's fallback,
+        which merges the env axis, so that every rank updates on the whole
+        batch (``_advantage`` gathers it)."""
+        return None if self.cfg.num_steps % self.cfg.num_minibatches else self.mesh
 
     # ------------------------------------------------------------------
     def _rollout(self, actions: Optional[torch.Tensor] = None):
         """Phase 1.  ``actions`` ([T, N, P] int), when given, replaces the
         sampled actions (tests use it to drive both packages alike).
         Returns the advanced (bstate, out) and the trajectory buffers
-        ``[T, N*P, ...]`` (streams n-major, seats minor)."""
+        ``[T, N*P, ...]`` (streams n-major, seats minor; on a mesh N is this
+        rank's worlds and ``actions`` its rows)."""
         cfg, env = self.cfg, self.env
-        T, N, P = cfg.num_steps, self.num_envs, env.num_agents
+        T, N, P = cfg.num_steps, self._rows.stop - self._rows.start, env.num_agents
         M = N * P
+        rows = (self._rows.start * P, self.num_envs * P)
         dev = self.device
         carry, env_step = self._fused.pack(self.state["bstate"]), self._fused.step
         out = self.state["out"]
@@ -169,7 +208,7 @@ class SelfPlayPPO:
                 mask = out.action_mask.reshape(M, -1) if self._masked else None
                 logits, value = self.net(obs, st, mask)
                 if actions is None:
-                    action = dist_sample(self.sample_gen, logits)
+                    action = dist_sample(self.sample_gen, logits, rows)
                 else:
                     action = actions[t].reshape(M).to(device=dev, dtype=torch.int32)
                 carry, out2 = env_step(carry, action.reshape(N, P))
@@ -192,9 +231,11 @@ class SelfPlayPPO:
         ``[num_minibatches, T / num_minibatches, M, ...]`` where
         ``num_minibatches`` divides T, else (JAX's fallback) to
         ``[num_minibatches, T * M // num_minibatches, ...]``: the buffer
-        flattened T-major, the last ``T * M % num_minibatches`` rows dropped."""
-        cfg = self.cfg
-        T, N, P = cfg.num_steps, self.num_envs, self.env.num_agents
+        flattened T-major, the last ``T * M % num_minibatches`` rows dropped
+        (on a mesh, the buffers of every rank, gathered).  ``stats`` holds
+        this rank's shares of the metrics' means."""
+        cfg, mesh = self.cfg, self.mesh
+        T, N, P = cfg.num_steps, self._rows.stop - self._rows.start, self.env.num_agents
         M = N * P
         if self._masked:
             rewards, slot_dones = credit_rewards(tr["reward"], tr["active"], tr["done"])
@@ -212,20 +253,18 @@ class SelfPlayPPO:
                           dones=slot_dones, active=tr["active"], values=tr["value"])
             adv, returns, active = active_masked_gae(buf, next_value, next_done,
                                                      out.active.reshape(M), cfg.gamma,
-                                                     cfg.gae_lambda)
+                                                     cfg.gae_lambda, mesh)
             b_active = active.float()
-            n = torch.clamp(b_active.sum(), min=1.0)
-            n_less_1 = torch.clamp(n - 1.0, min=1.0)
-            mean = lambda x: (x * b_active).sum() / n
+            mean = GlobalMean(mesh, weights=b_active, min_count=1.0)
+            n_less_1 = torch.clamp(mean.count - 1.0, min=1.0)
         else:
             adv, returns = plain_gae(rewards, slot_dones, tr["value"], next_value,
                                      next_done, cfg.gamma, cfg.gae_lambda)
-            n = float(T * M)
-            n_less_1 = max(n - 1.0, 1.0)
-            mean = lambda x: x.mean()
-        m = mean(adv)
-        var = mean((adv - m) ** 2)
-        std = torch.sqrt(var * n / n_less_1)  # unbiased
+            mean = GlobalMean(mesh, like=adv)
+            n_less_1 = max(mean.count - 1.0, 1.0)
+        m = all_sum(mesh, mean(adv), "advantage")
+        var = all_sum(mesh, mean((adv - m) ** 2), "advantage")
+        std = torch.sqrt(var * mean.count / n_less_1)  # unbiased
         adv = (adv - m) / (std + 1e-8)
         nmb = cfg.num_minibatches
         batch = {"obs": tr["obs"], "actions": tr["action"], "logprobs": tr["logp"],
@@ -239,6 +278,9 @@ class SelfPlayPPO:
             chunks = {k: v.reshape((nmb, T // nmb) + tuple(v.shape[1:]))
                       for k, v in batch.items()}
         else:
+            if mesh is not None:  # every rank updates on the whole batch
+                batch = {k: mesh.all_gather(v, dim=1, what="buffers") for k, v in batch.items()}
+                M *= mesh.size
             mb = T * M // nmb
             chunks = {k: v.reshape((T * M,) + tuple(v.shape[2:]))[:nmb * mb]
                       .reshape((nmb, mb) + tuple(v.shape[2:])) for k, v in batch.items()}
@@ -251,10 +293,9 @@ class SelfPlayPPO:
         newlogprob = dist_log_prob(logits, c["actions"])
         entropy = dist_entropy(logits)
         if "active" in c:
-            n = torch.clamp(c["active"].sum(), min=1.0)
-            mean = lambda x: (x * c["active"]).sum() / n
+            mean = GlobalMean(self._update_mesh, weights=c["active"], min_count=1.0)
         else:
-            mean = lambda x: x.mean()
+            mean = GlobalMean(self._update_mesh, like=c["advantages"])
         logratio = newlogprob - c["logprobs"]
         ratio = torch.exp(logratio)
         adv = c["advantages"]
@@ -278,7 +319,8 @@ class SelfPlayPPO:
 
     def _update(self, chunks: Dict[str, torch.Tensor]):
         """Phase 3.  Returns the last epoch's (pg, v, entropy, kl) losses,
-        each the mean over its minibatches."""
+        each the mean over its minibatches (on a mesh, this rank's shares,
+        unless the update ran on the whole batch)."""
         nmb = self.cfg.num_minibatches
         last = None
         for _ in range(self.cfg.update_epochs):
@@ -287,6 +329,7 @@ class SelfPlayPPO:
                 loss, aux = self._mb_loss({k: v[i] for k, v in chunks.items()})
                 self.opt.zero_grad(set_to_none=True)
                 loss.backward()
+                all_reduce_grads(self._update_mesh, self.net.parameters())
                 clip_grad_global_norm_(self.net.parameters(), self.cfg.max_grad_norm)
                 self.opt.step()
                 auxes.append(torch.stack([x.detach() for x in aux]))
@@ -294,34 +337,53 @@ class SelfPlayPPO:
         return tuple(last)
 
     def train_step(self, actions: Optional[torch.Tensor] = None):
-        """rollout -> advantage -> update; returns the metrics."""
+        """rollout -> advantage -> update; returns the metrics (on a mesh,
+        the means over the whole batch, on every rank)."""
         bstate, out, tr = self._rollout(actions)
         chunks, stats = self._advantage(tr, out)
-        pg, vl, ent, kl = self._update(chunks)
+        losses = torch.stack(self._update(chunks))
+        stats = torch.stack([stats["mean_step_reward"], stats["mean_value"]])
+        if self._update_mesh is None:  # the losses are the whole batch's already
+            metrics = torch.cat([losses, all_sum(self.mesh, stats, "metrics")])
+        else:
+            metrics = all_sum(self.mesh, torch.cat([losses, stats]), "metrics")
+        pg, vl, ent, kl, msr, mv = metrics
         self.state = {"bstate": bstate, "out": out}
-        return {"pg_loss": pg, "v_loss": vl, "entropy": ent, "approx_kl": kl, **stats}
+        return {"pg_loss": pg, "v_loss": vl, "entropy": ent, "approx_kl": kl,
+                "mean_step_reward": msr, "mean_value": mv}
 
     # ---- checkpointing -------------------------------------------------
     def save(self, path: str, with_env_state: bool = True) -> None:
         """The network, Adam and the sampler's generator state always; by
         default also the batched env state and the last output, so a load
         resumes mid-stream exactly.  ``with_env_state=False`` writes a
-        policy-only checkpoint, loadable at any ``num_envs``."""
+        policy-only checkpoint, loadable at any ``num_envs``.  On a mesh the
+        env state is gathered and rank 0 writes."""
         blob = {"net": self.net.state_dict(), "opt": self.opt.state_dict(),
                 "sample_gen": self.sample_gen.get_state()}
         if with_env_state:
-            blob["bstate"] = _to_tree(self.state["bstate"])
-            blob["out"] = _to_tree(self.state["out"])
-        save_pytree(path, blob)
+            for k in ("bstate", "out"):
+                tree = _to_tree(self.state[k])
+                blob[k] = tree if self.mesh is None else gather_batch_pytree(tree, self.mesh)
+        if is_primary():
+            save_pytree(path, blob)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load(self, path: str) -> None:
         """Restore a ``save``.  Env state saved at another batch size is
-        dropped: a policy-only restore."""
-        blob = load_pytree(path)
+        dropped: a policy-only restore.  On a mesh rank 0 reads and every
+        rank takes its rows."""
+        if self.mesh is None:
+            blob = load_pytree(path)
+        else:
+            blob = self.mesh.broadcast_object(load_pytree(path) if is_primary() else None)
         self.net.load_state_dict(blob["net"])
         self.opt.load_state_dict(blob["opt"])
         self.sample_gen.set_state(blob["sample_gen"])
         if "bstate" in blob and _batch_size(blob["bstate"]) == self.num_envs:
+            if self.mesh is not None:
+                blob = shard_batch_pytree({k: blob[k] for k in ("bstate", "out")}, self.mesh)
             self.state = {k: _from_tree(self.state[k], blob[k], self.device)
                           for k in ("bstate", "out")}
 
@@ -329,11 +391,12 @@ class SelfPlayPPO:
     def run(self, num_updates: int, log_every: int = 0, logger=None):
         """``num_updates`` updates; every ``log_every`` updates the metrics
         go to ``logger`` as ``selfplay/<key>`` at step ``u + 1``, or are
-        printed when there is no logger.  Returns the last metrics."""
+        printed when there is no logger (on a mesh, by rank 0 only).
+        Returns the last metrics."""
         metrics = None
         for u in range(num_updates):
             metrics = self.train_step()
-            if log_every and (u + 1) % log_every == 0:
+            if log_every and (u + 1) % log_every == 0 and is_primary():
                 # sorted, as JAX's metrics come back from its jit
                 m = {k: float(metrics[k]) for k in sorted(metrics)}
                 if logger is not None:

@@ -51,6 +51,19 @@ def base_parser(**defaults) -> argparse.ArgumentParser:
     return p
 
 
+def card_line(dev: torch.device):
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (the first card's), or
+    None on the CPU: what every recorded number is written beside."""
+    if dev.type != "cuda":
+        return None
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

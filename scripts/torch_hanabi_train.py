@@ -15,8 +15,9 @@ the active-mask GAE, over a ``DeviceVecEnv``: on the card every env step of
 a 2-player game is one launch of the Hanabi step kernel.  ``--single``
 switches to centralized self-play, one policy for both seats
 (``SelfPlayPPO``; the reference's ``hanabi_train_single``/
-``hanabi_agent.py`` path).  The flags and defaults are
-``hanabi_train.py``'s, plus ``--device`` (default: the card).
+``hanabi_agent.py`` path), which ends by printing its kernel launches.  The
+flags and defaults are ``hanabi_train.py``'s, plus ``--device`` (default:
+the card).
 """
 
 from __future__ import annotations
@@ -71,6 +72,20 @@ def build(args):
     return venv, ego, updates
 
 
+def print_launches() -> None:
+    """One line, ``kernel launches: {"<ops module>.<wrapper>": n, ...}``:
+    the kernel launches of this process, every wrapper that launched."""
+    import json
+
+    from madrona_rl_envs_playground_tpu_torch.ops import acrobot, balance, cartpole, hanabi
+    from madrona_rl_envs_playground_tpu_torch.ops import overcooked
+
+    counts = {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": n
+              for m in (acrobot, balance, cartpole, hanabi, overcooked)
+              for k, n in m.LAUNCHES.items() if n}
+    print(f"kernel launches: {json.dumps(counts)}", flush=True)
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.single:
@@ -82,7 +97,9 @@ def main(argv=None):
         cfg = SelfPlayConfig(num_steps=args.num_steps, lr=args.lr)
         trainer = SelfPlayPPO(env, num_envs=args.num_envs, cfg=cfg, seed=args.seed,
                               device=args.device)
-        return trainer.run(updates, log_every=max(updates // 20, 1))
+        metrics = trainer.run(updates, log_every=max(updates // 20, 1))
+        print_launches()
+        return metrics
 
     from madrona_rl_envs_playground_tpu_torch.train.cleanrl_ppo import run_decentralized
 

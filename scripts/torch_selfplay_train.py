@@ -10,7 +10,10 @@
 
 The flags and defaults are ``selfplay_train.py``'s, less ``--rollout-backend``
 (the device decides: the env's step kernel on the card, its plain version on
-the CPU) and the multi-host mesh, plus ``--device`` (default: the card).  One
+the CPU), plus ``--device`` (default: the card).  Under ``torchrun
+--nproc_per_node=R`` the R ranks train one policy on a mesh, each on its
+``--num-envs / R`` worlds (``parallel/``), as JAX's script does under
+``jax.distributed``; rank 0 prints.  One
 untimed update runs first; the timed updates end on a value read from the
 device, and the last line is ``total: ... steps/s``.  Every ``--log-every``
 updates the metrics are printed as ``update N: {...}``.
@@ -74,8 +77,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_trainer(args):
-    """The ``SelfPlayPPO`` that ``args`` (``parse_args``) describe."""
+def build_trainer(args, mesh=None):
+    """The ``SelfPlayPPO`` that ``args`` (``parse_args``) describe (on
+    ``mesh``, where given)."""
     from madrona_rl_envs_playground_tpu_torch.train.selfplay import (SelfPlayConfig,
                                                                      SelfPlayPPO)
 
@@ -87,12 +91,19 @@ def build_trainer(args):
         value_loss=args.value_loss,
     )
     return SelfPlayPPO(env, num_envs=args.num_envs, cfg=cfg, seed=args.seed,
-                       device=args.device)
+                       device=args.device, mesh=mesh)
 
 
 def main(argv=None) -> None:
+    from madrona_rl_envs_playground_tpu_torch.parallel import launch, make_mesh
+
     args = parse_args(argv)
-    trainer = build_trainer(args)
+    # a no-op unless torchrun's MASTER_ADDR / WORLD_SIZE / RANK are set
+    mesh = make_mesh(device=args.device) if launch.initialize(device=args.device) else None
+    if mesh is not None and args.num_envs % mesh.size:
+        raise SystemExit(f"--num-envs {args.num_envs} must be divisible by the mesh "
+                         f"size {mesh.size}")
+    trainer = build_trainer(args, mesh)
     # one untimed update first (kernel load, allocator warm-up); the fence
     # is a device -> host read of a metric, which waits for every update
     # before it, since each depends on the one before
@@ -102,8 +113,9 @@ def main(argv=None) -> None:
     sync(trainer.run(args.updates, log_every=args.log_every))
     dt = time.time() - t0
     steps = args.updates * args.num_steps * args.num_envs
-    print(f"total: {steps:,} env-steps in {dt:.1f}s -> {steps / dt:,.0f} steps/s "
-          f"(steady-state; 1 warmup update excluded)")
+    if launch.is_primary():
+        print(f"total: {steps:,} env-steps in {dt:.1f}s -> {steps / dt:,.0f} steps/s "
+              f"(steady-state; 1 warmup update excluded)")
 
 
 if __name__ == "__main__":

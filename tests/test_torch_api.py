@@ -116,8 +116,17 @@ def test_partner_management_errors():
     assert venv3.resample_partner == venv3.resample_random
     venv3.add_partner_agent(agent, player_num=2)
     assert venv3.partners[1] == [agent] and venv3._get_partner_num(1) == 0
-    with pytest.raises(NotImplementedError, match="item 13"):
-        DeviceVecEnv(env, 2, sharding=object(), device=CPU)
+    # sharding: a mesh of this one process steps every world, as unsharded
+    from madrona_rl_envs_playground_tpu_torch.parallel import make_mesh
+
+    sharded = DeviceVecEnv(env, 2, sharding=make_mesh(device=CPU))
+    plain = DeviceVecEnv(env, 2, device=CPU)
+    assert sharded.num_envs == 2 and sharded.device.type == "cpu"
+    for a, b in zip(sharded.n_reset(), plain.n_reset()):
+        assert torch.equal(a.obs, b.obs)
+    acts = torch.ones((env.num_agents, 2), dtype=torch.int32)
+    (sa, sr, sd, _), (pa, pr, pd, _) = sharded.n_step(acts), plain.n_step(acts)
+    assert torch.equal(sr, pr) and torch.equal(sd, pd)
 
 
 def test_random_agent_draws_legal_actions():
@@ -358,6 +367,11 @@ def test_async_balance_rollout_matches_sync():
         assert np.isfinite(total)
     finally:
         venv.close()
+    # close() joins each worker for 2 s, as JAX's does; a worker that has
+    # imported torch may take longer than that to exit on a loaded machine,
+    # so wait for each with a limit of its own before checking that all ended
+    for p in venv.procs:
+        p.join(timeout=60)
     assert not any(p.is_alive() for p in venv.procs)
 
 

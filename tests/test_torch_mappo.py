@@ -489,13 +489,16 @@ def test_runner_needs_a_card_and_names_what_is_left_out(monkeypatch):
     env = t_balance.Env()
     small = dict(episode_length=2, n_rollout_threads=2, hidden_size=8)
     # the recurrent policy builds; the CNN needs a grid env (JAX raises the
-    # same ValueError); the mesh's minibatching names item 13
+    # same ValueError); timestep-band minibatches need T % num_mini_batch == 0
+    # (JAX's ValueError)
     assert tm.MAPPORunner(tm.MAPPOConfig(**small, use_recurrent_policy=True), env,
                           device=CPU).policy.actor.rnn is not None
     with pytest.raises(ValueError, match="grid env"):
         tm.MAPPORunner(tm.MAPPOConfig(**small, use_cnn_obs=True), env, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.MAPPORunner(tm.MAPPOConfig(**small, shard_local_minibatch=True), env, device=CPU)
+    bands = tm.MAPPORunner(tm.MAPPOConfig(**small, shard_local_minibatch=True,
+                                          num_mini_batch=3), env, device=CPU)
+    with pytest.raises(ValueError, match="shard_local_minibatch"):
+        bands.run(episodes=1, log=None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tm.MAPPORunner(tm.MAPPOConfig(**small), env)

@@ -279,10 +279,17 @@ def assert_update_matches_jax(jt, tt, j_tr, j_out, loss_atol=1e-7, loss_abs=None
         if loss_abs is not None:
             assert abs(float(t_v) - float(j_v[-1])) <= loss_abs, name
 
+    assert_deltas_match_jax(before, tt.net.state_dict(), params0, params1)
+
+
+def assert_deltas_match_jax(before, after, params0, params1):
+    """Every parameter delta of the port's network (state dicts ``before``
+    and ``after`` an update) against JAX's (flax params ``params0`` and
+    ``params1``)."""
     j0, j1 = _np_params(params0)["params"], _np_params(params1)["params"]
-    after = tt.net.state_dict()
+    layers = sum(1 for k in before if k.startswith("actor.layers.") and k.endswith(".weight"))
     for tower in ("actor", "critic"):
-        for i in range(len(tt.net.actor.layers)):
+        for i in range(layers):
             for leaf, key in (("kernel", "weight"), ("bias", "bias")):
                 j_delta = j1[tower][f"Dense_{i}"][leaf] - j0[tower][f"Dense_{i}"][leaf]
                 tk = f"{tower}.layers.{i}.{key}"
