@@ -114,8 +114,12 @@ def active_masked_gae(buf: Rollout, next_value: torch.Tensor, next_done: torch.T
     it is not trained; once every stream has been, every active slot is
     computed and trained.  "Every stream" is the whole batch: on a ``mesh``
     (this rank's streams) the ranks add up, in one all-reduce, the streams
-    still waiting at each slot.  Returns (advantages [T, M], returns [T, M],
-    trainable active [T, M] bool)."""
+    still waiting at each slot.  On the card the self-play trainer replays
+    this loop inside its captured advantage scans (``train/selfplay.py``'s
+    ``_scan_body``); the mesh case stays eager, since masked envs on a mesh
+    step the plain collector, which is never captured (``train/graphs.py``).
+    Returns (advantages [T, M], returns [T, M], trainable active [T, M]
+    bool)."""
     T = buf.values.shape[0]
     # the streams not yet bootstrapped when the scan reaches slot t: active
     # at no later slot and not after the rollout

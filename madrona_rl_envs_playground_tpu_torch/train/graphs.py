@@ -1,0 +1,145 @@
+"""CUDA graphs of the trainers' T-step loops.
+
+The counterpart of JAX compiling a rollout into one program (``jax.jit`` of
+a ``lax.scan``: ``train/selfplay.py``'s rollout and credit scans,
+``train/cleanrl_ppo.py``'s masked GAE, ``train/mappo/runner.py``'s collect
+and eval).  The port's loops launch every op of every step from Python; on
+the card a trainer captures each loop once as a CUDA graph and replays it
+on every later call, the step kernels (K1, K3, K5, K7, K9) launched inside
+the captured region.  The loop body is one Python function, which the CPU
+runs eagerly and the capture records, so the CPU tests cover what the card
+replays.
+
+**The rule** (``captures``): a trainer on a CUDA device whose collector
+steps a kernel is captured.  A kernel collector's step holds no host
+collective, on a mesh too (K1's one all-reduce of the episode counter is in
+``unpack``, outside the graph).  The plain collector stays eager: on a mesh
+its ``batched_step`` all-gathers a scalar every step (gloo, which the
+card's mesh runs use, cannot be captured), and its envs' steps read the
+host (Hanabi's deal), so no graph can hold them.  The CPU is always eager.
+There is no switch: a capture or a launch that fails raises.
+
+``LoopGraph`` holds one loop: its first call runs the loop eagerly on the
+graph's side stream and returns that result (the warm-up, which fills the
+kernels' per-device caches, the step kernels' scan words of that stream and
+cuBLAS's workspace), then captures the loop on static copies of its
+arguments; every later call copies its arguments into those static inputs
+and replays.  The samplers' generators are registered with the graph, so
+that a replay advances each exactly as the eager loop would and draws the
+same numbers.  The wrappers' ``LAUNCHES`` counts (``ops/*.py``) count
+Python calls: the capture's calls are taken back out, and every replay adds
+them again.
+
+A replay returns the graph's static outputs, which the next replay of the
+same graph overwrites: a caller that keeps a result across calls clones it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
+
+from ..ops import acrobot, balance, cartpole, hanabi, overcooked
+
+# the modules whose wrappers count their launches in LAUNCHES
+LAUNCH_MODULES = (overcooked, cartpole, balance, acrobot, hanabi)
+
+
+def captures(device, collector) -> bool:
+    """Whether a trainer on ``device`` stepping through ``collector``
+    (``train/fused_collect.py``; on a mesh, the mesh's collector) captures
+    its loops: on a CUDA device with a kernel collector."""
+    return torch.device(device).type == "cuda" and collector.kernel
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` applied to every tensor of a tree of tuples, lists, dicts and
+    dataclasses; other leaves (None, numbers) kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: tree_map(fn, getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree, in ``tree_map``'s order."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
+def launch_counts() -> Dict[Tuple[str, str], int]:
+    return {(m.__name__, k): n for m in LAUNCH_MODULES for k, n in m.LAUNCHES.items()}
+
+
+def add_launches(delta: Dict[Tuple[str, str], int], sign: int = 1) -> None:
+    by_name = {m.__name__: m for m in LAUNCH_MODULES}
+    for (mod, key), n in delta.items():
+        by_name[mod].LAUNCHES[key] += sign * n
+
+
+class LoopGraph:
+    """``fn(*args)`` on the card, replayed from a CUDA graph.
+
+    ``args`` is a tree of CUDA tensors (``tree_map``) of the same shapes,
+    dtypes and structure on every call; ``fn`` reads nothing else that
+    changes between calls other than in place (the nets' parameters, which
+    the optimizers update in place, and the ``generators``, each registered
+    with the graph).  ``fn`` returns a tree of tensors."""
+
+    def __init__(self, fn: Callable, generators: Sequence[torch.Generator] = ()):
+        self.fn = fn
+        self.generators = tuple(generators)
+        self.stream = None  # the side stream of the warm-up and the capture
+        self.graph = None
+        self.launches: Dict[Tuple[str, str], int] = {}  # a replay's wrapper calls
+        self._inputs = self._outputs = None
+
+    def __call__(self, *args):
+        if self.graph is None:
+            out = self._warm_up(args)
+            self._capture(args)
+            return out
+        for dst, src in zip(tree_leaves(self._inputs), tree_leaves(args), strict=True):
+            dst.copy_(src)
+        self.graph.replay()
+        add_launches(self.launches)
+        return self._outputs
+
+    def _warm_up(self, args):
+        """The first call, eager on the side stream that the capture will
+        use, ordered after the caller's stream and before its next work."""
+        caller = torch.cuda.current_stream()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            out = self.fn(*args)
+        caller.wait_stream(stream)
+        self.stream = stream
+        return out
+
+    def _capture(self, args) -> None:
+        self._inputs = tree_map(torch.clone, args)
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        before = launch_counts()
+        try:
+            # thread_local: another thread's CUDA calls (gloo's workers,
+            # a server's) do not void this thread's capture
+            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
+                self._outputs = self.fn(*self._inputs)
+        finally:
+            after = launch_counts()
+            # the capture records launches and runs none
+            self.launches = {k: after[k] - n for k, n in before.items() if after[k] != n}
+            add_launches(self.launches, -1)
+        self.graph = graph

@@ -20,7 +20,8 @@ buffer in place and return it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 
@@ -128,30 +129,48 @@ def after_update(buf: MAPPOBuffer) -> MAPPOBuffer:
     return buf
 
 
-def compute_returns(buf: MAPPOBuffer, next_value: torch.Tensor,
-                    vn_state: Optional[ValueNormState], gamma: float, gae_lambda: float,
-                    use_gae: bool = True, use_proper_time_limits: bool = False) -> MAPPOBuffer:
-    """GAE over the episode buffer (reference ``shared_buffer.py:176-233``),
-    a reverse loop over T; writes ``value_preds[T]`` and ``returns``."""
-    buf.value_preds[-1] = next_value
-    masks, bad = buf.masks, buf.bad_masks
-    # the denormalized predictions, once for the whole [T+1, M] buffer
-    vp = buf.value_preds if vn_state is None else vn_denormalize(vn_state, buf.value_preds)
-    T = buf.rewards.shape[0]
+def returns_scan(rewards: torch.Tensor, vp: torch.Tensor, masks: torch.Tensor,
+                 bad: torch.Tensor, next_value: torch.Tensor, gamma: float, gae_lambda: float,
+                 use_gae: bool = True, use_proper_time_limits: bool = False) -> torch.Tensor:
+    """``compute_returns``' reverse loop over T: the returns ``[T, M]`` of
+    slots 0..T-1 from the rewards ``[T, M]``, the (denormalized) value
+    predictions, masks and bad masks ``[T+1, M]`` and the bootstrap value
+    ``[M]``.  The runner replays it from a CUDA graph on the card."""
+    T = rewards.shape[0]
+    returns = torch.empty_like(rewards)
     if use_gae:
         gae = torch.zeros_like(next_value)
         for t in range(T - 1, -1, -1):
-            delta = buf.rewards[t] + gamma * vp[t + 1] * masks[t + 1] - vp[t]
+            delta = rewards[t] + gamma * vp[t + 1] * masks[t + 1] - vp[t]
             gae = delta + gamma * gae_lambda * masks[t + 1] * gae
             if use_proper_time_limits:
                 gae = gae * bad[t + 1]
-            buf.returns[t] = gae + vp[t]
+            returns[t] = gae + vp[t]
     else:
         ret = next_value
         for t in range(T - 1, -1, -1):
-            ret = ret * gamma * masks[t + 1] + buf.rewards[t]
+            ret = ret * gamma * masks[t + 1] + rewards[t]
             if use_proper_time_limits:
                 ret = ret * bad[t + 1] + (1.0 - bad[t + 1]) * vp[t]
-            buf.returns[t] = ret
+            returns[t] = ret
+    return returns
+
+
+def compute_returns(buf: MAPPOBuffer, next_value: torch.Tensor,
+                    vn_state: Optional[ValueNormState], gamma: float, gae_lambda: float,
+                    use_gae: bool = True, use_proper_time_limits: bool = False,
+                    scan: Optional[Callable] = None) -> MAPPOBuffer:
+    """GAE over the episode buffer (reference ``shared_buffer.py:176-233``),
+    a reverse loop over T (``returns_scan``, or ``scan``, a callable of its
+    first five arguments that computes the same); writes ``value_preds[T]``
+    and ``returns``."""
+    buf.value_preds[-1] = next_value
+    # the denormalized predictions, once for the whole [T+1, M] buffer
+    vp = buf.value_preds if vn_state is None else vn_denormalize(vn_state, buf.value_preds)
+    if scan is None:
+        scan = functools.partial(returns_scan, gamma=gamma, gae_lambda=gae_lambda,
+                                 use_gae=use_gae, use_proper_time_limits=use_proper_time_limits)
+    buf.returns[:-1] = scan(buf.rewards, vp, buf.masks, buf.bad_masks, next_value)
+    if not use_gae:
         buf.returns[-1] = next_value
     return buf

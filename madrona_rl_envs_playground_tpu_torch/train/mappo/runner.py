@@ -7,9 +7,20 @@ policy acts for every seat of every env each step, the trajectories of all
 update is three phases:
 
 1. ``_collect``: ``episode_length`` steps of policy forward, sampling and
-   env step, a Python loop (JAX scans it);
+   env step, a Python loop (``_collect_body``; JAX scans it);
 2. ``_compute``: the bootstrap value and ``compute_returns``;
 3. ``trainer.train``: the PPO epochs.
+
+On the card, where the collector steps a kernel (``captured``;
+``train/graphs.py`` states the rule), the collect, ``compute_returns``'
+reverse loop and one ``episode_length`` block of ``evaluate`` (by the same
+rule for its own collector) are each captured once as a CUDA graph and
+replayed from then on, the counterpart of JAX's jitted scans; each one's
+first call runs eagerly as the warm-up (it also settles cuDNN's choice for
+the CNN base) and captures.  Injected actions always run eagerly.  The carry (env state, last output, masks and
+hidden states) is copied into a graph's static inputs before each replay
+and read back from its outputs after it, so ``restore`` and a changed
+``bstate`` take effect at the next call.
 
 The env steps through its collector (``train/fused_collect.py``), so on the
 card through its step kernel (K1 for Overcooked, K9 for Acrobot) and on the
@@ -47,6 +58,7 @@ hands every rank its score; rank 0 logs and writes the checkpoints, and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Dict, Optional
@@ -62,7 +74,8 @@ from ...utils.checkpoint import load_pytree, save_pytree
 from ...utils.logger import ScalarLogger
 from ..fused_collect import make_fused_collect
 from ..optim import all_sum
-from .buffer import MAPPOBuffer, compute_returns, init_buffer
+from ..graphs import LoopGraph, captures
+from .buffer import MAPPOBuffer, compute_returns, init_buffer, returns_scan
 from .config import MAPPOConfig
 from .policy import MAPPOPolicy
 from .trainer import RMAPPOTrainer
@@ -112,21 +125,53 @@ class MAPPORunner:
         self._rnnc = self.policy.critic.zero_states(B, dev)
         self._rnn_shape = tuple(self._rnn.shape)
         self._fused = make_fused_collect(env, self.N, dev, mesh=mesh)
+        # evaluate runs over the whole batch: on a mesh, on rank 0 through
+        # a collector of its own; its sampler's seed is reset at every call
+        self._eval_fused = self._fused if mesh is None else make_fused_collect(env, self.N, dev)
+        self._eval_gen = torch.Generator(device=dev)
+        self._collect_graph = self._returns_graph = None
+        self._eval_graphs = {}  # deterministic -> the eval block's graph
+        if captures(dev, self._fused):
+            self._collect_graph = LoopGraph(self._collect_body, [self.sample_gen])
+            self._returns_graph = LoopGraph(functools.partial(
+                returns_scan, gamma=cfg.gamma, gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
+                use_proper_time_limits=cfg.use_proper_time_limits))
         self.episode_rewards = []  # average episode score of each update
+
+    @property
+    def captured(self) -> bool:
+        """Whether the collect and the returns replay CUDA graphs
+        (``train/graphs.py``'s rule: a kernel collector on the card)."""
+        return self._collect_graph is not None
 
     # ------------------------------------------------------------------
     def _collect(self, actions: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One ``episode_length`` rollout from the runner's carry, which it
         advances.  ``actions`` ([T, N, A] int), when given, replaces the
-        sampled actions.  Returns the trajectory, ``[T, M, ...]`` with
-        M = N * A thread-major (on a mesh, this rank's envs and ``actions``
-        its rows); a recurrent policy's also holds ``rnn`` and ``rnnc``, each
-        step's hidden states before it."""
+        sampled actions (always eager).  Returns the trajectory,
+        ``[T, M, ...]`` with M = N * A thread-major (on a mesh, this rank's
+        envs and ``actions`` its rows); a recurrent policy's also holds
+        ``rnn`` and ``rnnc``, each step's hidden states before it.  On a
+        captured runner the trajectory and the carry are the graph's, which
+        the next collect overwrites."""
+        args = (self._fused.pack(self.bstate), self.out, self._masks, self._rnn, self._rnnc)
+        if actions is None and self.captured:
+            res = self._collect_graph(*args)
+        else:
+            res = self._collect_body(*args, actions)
+        carry, self.out, self._masks, self._rnn, self._rnnc, tr = res
+        self.bstate = self._fused.unpack(carry)
+        return tr
+
+    def _collect_body(self, carry, out, masks, rnn, rnnc,
+                      actions: Optional[torch.Tensor] = None):
+        """The collect's T steps from the collector's ``carry``, the last
+        output, the masks and the hidden states: the loop that the CPU runs
+        and the card captures.  Returns them advanced, and the trajectory."""
         cfg, N, A = self.cfg, self.n_local, self.A
         B, T, dev = N * A, cfg.episode_length, self.device
         rows = (self._rows.start * A, self.N * A)
-        carry, out, masks = self._fused.pack(self.bstate), self.out, self._masks
-        rnn, rnnc, recurrent = self._rnn, self._rnnc, self.policy.recurrent
+        recurrent = self.policy.recurrent
         env = self.env
         tr = {
             "share_obs": torch.empty((T, B, env.state_size), dtype=out.state_obs.dtype,
@@ -167,9 +212,7 @@ class MAPPORunner:
                              ("done", out2.done)):
                     tr[k][t] = v
                 masks, out = masks2, out2
-        self.bstate, self.out = self._fused.unpack(carry), out
-        self._masks, self._rnn, self._rnnc = masks, rnn, rnnc
-        return tr
+        return carry, out, masks, rnn, rnnc, tr
 
     def _compute(self, buf: MAPPOBuffer) -> MAPPOBuffer:
         B = self.n_local * self.A
@@ -179,7 +222,7 @@ class MAPPORunner:
         vn = self.trainer.vn if (self.cfg.use_popart or self.cfg.use_valuenorm) else None
         return compute_returns(buf, next_value.reshape(B), vn, self.cfg.gamma,
                                self.cfg.gae_lambda, self.cfg.use_gae,
-                               self.cfg.use_proper_time_limits)
+                               self.cfg.use_proper_time_limits, scan=self._returns_graph)
 
     def _tr_to_buffer(self, tr: Dict[str, torch.Tensor], final_masks: torch.Tensor,
                       final_active: torch.Tensor) -> MAPPOBuffer:
@@ -300,31 +343,47 @@ class MAPPORunner:
         episode and env.  Steps through the env's collector where it has one,
         whose outputs equal ``batched_step``'s.  The actor starts from zero
         states and carries them, zeroed where an episode ended, as
-        ``_collect`` does.  On a mesh rank 0 runs it over the whole batch and
-        every rank returns its score."""
+        ``_collect`` does.  On a captured runner one ``episode_length``
+        block is a graph, replayed ``episodes`` times; the score stays on
+        the card until the end.  On a mesh rank 0 runs it over the whole
+        batch and every rank returns its score."""
         if self.mesh is not None:
-            score = self._evaluate(make_fused_collect(self.env, self.N, self.device),
-                                   episodes, deterministic) if is_primary() else None
+            score = self._evaluate(episodes, deterministic) if is_primary() else None
             return self.mesh.broadcast_object(score)
-        return self._evaluate(self._fused, episodes, deterministic)
+        return self._evaluate(episodes, deterministic)
 
-    def _evaluate(self, collect, episodes: int, deterministic: bool) -> float:
+    def _evaluate(self, episodes: int, deterministic: bool) -> float:
         cfg, N, A, dev = self.cfg, self.N, self.A, self.device
         B = N * A
+        collect = self._eval_fused
         bstate, out = batched_reset(self.env, N, start_episode=10_000_000, device=dev)
-        carry = collect.pack(bstate)
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed + 777)
-        total = torch.zeros((), dtype=torch.float64, device=dev)
-        actor = self.policy.actor
-        rnn, masks = actor.zero_states(B, dev), torch.ones((B,), device=dev)
+        self._eval_gen.manual_seed(cfg.seed + 777)
+        block = functools.partial(self._eval_body, deterministic=deterministic)
+        if captures(dev, collect):
+            if deterministic not in self._eval_graphs:
+                self._eval_graphs[deterministic] = LoopGraph(block, [self._eval_gen])
+            block = self._eval_graphs[deterministic]
+        carry = (collect.pack(bstate), out, self.policy.actor.zero_states(B, dev),
+                 torch.ones((B,), device=dev), torch.zeros((), dtype=torch.float64, device=dev))
+        for _ in range(episodes):
+            carry = block(*carry)
+        return float(carry[-1]) / (episodes * N)
+
+    def _eval_body(self, carry, out, rnn, masks, total, deterministic: bool):
+        """One ``episode_length`` block of ``evaluate``: the loop that the
+        CPU runs and the card captures.  Returns its arguments advanced, the
+        score summed into ``total``."""
+        N, A = self.N, self.A
+        B = N * A
+        collect, actor = self._eval_fused, self.policy.actor
         with torch.no_grad():
-            for _ in range(episodes * cfg.episode_length):
+            for _ in range(self.cfg.episode_length):
                 obs, avail = out.obs.reshape(B, -1), out.action_mask.reshape(B, -1)
                 logits, rnn = actor(obs, rnn, masks, avail)
                 act = (torch.argmax(logits, -1).to(torch.int32) if deterministic
-                       else dist_sample(gen, logits))
+                       else dist_sample(self._eval_gen, logits))
                 carry, out = collect.step(carry, act.reshape(N, A))
-                total += out.reward[:, 0].sum(dtype=torch.float64)
+                total = total + out.reward[:, 0].sum(dtype=torch.float64)
                 masks = 1.0 - out.done[:, None].expand(N, A).reshape(B).float()
                 rnn = rnn * masks[:, None, None]
-        return float(total) / (episodes * N)
+        return carry, out, rnn, masks, total

@@ -24,10 +24,19 @@ normalisation, every loss term and the metrics are means over the active
 slots only.  Their logits are masked to the legal moves, and their critic
 reads ``state_obs`` where it is not the obs (``env.state_is_obs``).
 
-The JAX ``lax.scan`` loops become Python loops.  ``run`` drives updates and
-logs their metrics; ``save``/``load`` checkpoint the network, Adam and the
-sampler's generator state (JAX's ``key``) and, by default, the batched env
-state, so a restore resumes mid-stream exactly.
+The JAX ``lax.scan`` loops become Python loops: the rollout's T steps
+(``_rollout_body``) and the advantage's credit and GAE scans
+(``_scan_body``).  On the card, where the collector steps a kernel
+(``captured``; ``train/graphs.py`` states the rule), each is captured once
+as a CUDA graph and replayed on every later update, the counterpart of
+JAX's one jit; the first update runs them eagerly as the warm-up.  Injected
+actions always run eagerly.  ``run`` drives updates and logs their
+metrics; ``save``/``load`` checkpoint the network, Adam and the sampler's
+generator state (JAX's ``key``) and, by default, the batched env state, so
+a restore resumes mid-stream exactly (a ``load`` into a captured trainer
+reaches its next replay: the state is copied into the graph's inputs at
+every rollout, and the generator, registered with the graph, is set in
+place).
 
 On a ``mesh`` (``parallel/mesh.py``) each rank holds its rows of the
 ``num_envs`` worlds, steps them through the mesh's collector
@@ -66,6 +75,7 @@ from ..parallel.mesh import gather_batch_pytree, put_selfplay_state, shard_batch
 from ..utils.checkpoint import load_pytree, save_pytree
 from .cleanrl_ppo import Rollout, active_masked_gae, plain_gae
 from .fused_collect import make_fused_collect
+from .graphs import LoopGraph, captures
 from .optim import GlobalMean, all_reduce_grads, all_sum, clip_grad_global_norm_
 
 
@@ -159,6 +169,10 @@ class SelfPlayPPO:
         # the rest (e.g. many_player_layout-scale grids, 3-player Hanabi)
         # get the plain collector
         self._fused = make_fused_collect(env, num_envs, self.device, mesh=mesh)
+        self._rollout_graph = self._scan_graph = None
+        if captures(self.device, self._fused):
+            self._rollout_graph = LoopGraph(self._rollout_body, [self.sample_gen])
+            self._scan_graph = LoopGraph(self._scan_body)
         bstate, out = batched_reset(env, num_envs, device=self.device)
         self.state = {"bstate": bstate, "out": out}
         if mesh is not None:
@@ -174,19 +188,37 @@ class SelfPlayPPO:
         return None if self.cfg.num_steps % self.cfg.num_minibatches else self.mesh
 
     # ------------------------------------------------------------------
+    @property
+    def captured(self) -> bool:
+        """Whether the rollout and the advantage scans replay CUDA graphs
+        (``train/graphs.py``'s rule: a kernel collector on the card)."""
+        return self._rollout_graph is not None
+
     def _rollout(self, actions: Optional[torch.Tensor] = None):
         """Phase 1.  ``actions`` ([T, N, P] int), when given, replaces the
-        sampled actions (tests use it to drive both packages alike).
-        Returns the advanced (bstate, out) and the trajectory buffers
-        ``[T, N*P, ...]`` (streams n-major, seats minor; on a mesh N is this
-        rank's worlds and ``actions`` its rows)."""
+        sampled actions (tests use it to drive both packages alike; always
+        eager).  Returns the advanced (bstate, out) and the trajectory
+        buffers ``[T, N*P, ...]`` (streams n-major, seats minor; on a mesh N
+        is this rank's worlds and ``actions`` its rows).  On a captured
+        trainer the out and buffers are the graph's, which the next rollout
+        overwrites."""
+        carry, out = self._fused.pack(self.state["bstate"]), self.state["out"]
+        if actions is None and self.captured:
+            carry, out, tr = self._rollout_graph(carry, out)
+        else:
+            carry, out, tr = self._rollout_body(carry, out, actions)
+        return self._fused.unpack(carry), out, tr
+
+    def _rollout_body(self, carry, out, actions: Optional[torch.Tensor] = None):
+        """The rollout's T steps from the collector's ``carry`` and the last
+        ``StepOutput``: the loop that the CPU runs and the card captures.
+        Returns (carry, out, tr)."""
         cfg, env = self.cfg, self.env
         T, N, P = cfg.num_steps, self._rows.stop - self._rows.start, env.num_agents
         M = N * P
         rows = (self._rows.start * P, self.num_envs * P)
         dev = self.device
-        carry, env_step = self._fused.pack(self.state["bstate"]), self._fused.step
-        out = self.state["out"]
+        env_step = self._fused.step
         tr = {
             "obs": torch.empty((T, M, env.obs_size), dtype=out.obs.dtype, device=dev),
             "action": torch.empty((T, M), dtype=torch.int32, device=dev),
@@ -224,7 +256,41 @@ class SelfPlayPPO:
                 tr["reward"][t] = out2.reward.reshape(M)
                 tr["done"][t] = out2.done[:, None].expand(N, P).reshape(M)
                 out = out2
-        return self._fused.unpack(carry), out, tr
+        return carry, out, tr
+
+    def _scan_body(self, reward, done, value, active, next_state_obs, next_done, next_active):
+        """The advantage's T-step scans: the credit routing (masked envs),
+        the bootstrap value and the GAE.  ``reward``, ``done``, ``value`` and
+        ``active`` are the rollout's buffers, the ``next_*`` its last
+        ``StepOutput``'s ``state_obs``, ``done`` and ``active`` (``active``
+        and ``next_active`` None for envs that never mask).  Returns (rewards,
+        advantages, returns, trainable active or None), each [T, M].  On a
+        mesh the masked GAE all-reduces its counts of waiting streams; only
+        the plain collector, which is never captured, runs masked envs on a
+        mesh, so a captured scan holds no collective."""
+        T, N, P = self.cfg.num_steps, self._rows.stop - self._rows.start, self.env.num_agents
+        M = N * P
+        if self._masked:
+            rewards, slot_dones = credit_rewards(reward, active, done)
+        else:
+            # every seat acts every step: the routing is the identity and
+            # slot dones are the dones shifted by one
+            rewards = reward
+            slot_dones = torch.cat([torch.zeros_like(done[:1]), done[:-1]])
+        with torch.no_grad():
+            next_value = self.net.get_value(next_state_obs.reshape(M, -1))
+        next_done = next_done[:, None].expand(N, P).reshape(M)
+        if self._masked:
+            buf = Rollout(obs=None, states=None, actions=None, action_masks=None,
+                          logprobs=None, rewards=rewards, dones=slot_dones, active=active,
+                          values=value)
+            adv, returns, trainable = active_masked_gae(
+                buf, next_value, next_done, next_active.reshape(M), self.cfg.gamma,
+                self.cfg.gae_lambda, self.mesh)
+            return rewards, adv, returns, trainable
+        adv, returns = plain_gae(rewards, slot_dones, value, next_value, next_done,
+                                 self.cfg.gamma, self.cfg.gae_lambda)
+        return rewards, adv, returns, None
 
     def _advantage(self, tr: Dict[str, torch.Tensor], out):
         """Phase 2.  Returns (chunks, stats): chunks maps each buffer to
@@ -237,29 +303,15 @@ class SelfPlayPPO:
         cfg, mesh = self.cfg, self.mesh
         T, N, P = cfg.num_steps, self._rows.stop - self._rows.start, self.env.num_agents
         M = N * P
+        scans = self._scan_graph if self.captured else self._scan_body
+        rewards, adv, returns, active = scans(
+            tr["reward"], tr["done"], tr["value"], tr.get("active"), out.state_obs, out.done,
+            out.active if self._masked else None)
         if self._masked:
-            rewards, slot_dones = credit_rewards(tr["reward"], tr["active"], tr["done"])
-        else:
-            # every seat acts every step: the routing is the identity and
-            # slot dones are the dones shifted by one
-            rewards = tr["reward"]
-            slot_dones = torch.cat([torch.zeros_like(tr["done"][:1]), tr["done"][:-1]])
-        with torch.no_grad():
-            next_value = self.net.get_value(out.state_obs.reshape(M, -1))
-        next_done = out.done[:, None].expand(N, P).reshape(M)
-        if self._masked:
-            buf = Rollout(obs=tr["obs"], states=tr["state_obs"], actions=tr["action"],
-                          action_masks=tr["mask"], logprobs=tr["logp"], rewards=rewards,
-                          dones=slot_dones, active=tr["active"], values=tr["value"])
-            adv, returns, active = active_masked_gae(buf, next_value, next_done,
-                                                     out.active.reshape(M), cfg.gamma,
-                                                     cfg.gae_lambda, mesh)
             b_active = active.float()
             mean = GlobalMean(mesh, weights=b_active, min_count=1.0)
             n_less_1 = torch.clamp(mean.count - 1.0, min=1.0)
         else:
-            adv, returns = plain_gae(rewards, slot_dones, tr["value"], next_value,
-                                     next_done, cfg.gamma, cfg.gae_lambda)
             mean = GlobalMean(mesh, like=adv)
             n_less_1 = max(mean.count - 1.0, 1.0)
         m = all_sum(mesh, mean(adv), "advantage")
