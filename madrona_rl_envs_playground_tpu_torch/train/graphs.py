@@ -1,23 +1,31 @@
-"""CUDA graphs of the trainers' T-step loops.
+"""CUDA graphs of the trainers' loops: the T-step rollouts and the PPO epochs.
 
-The counterpart of JAX compiling a rollout into one program (``jax.jit`` of
-a ``lax.scan``: ``train/selfplay.py``'s rollout and credit scans,
-``train/cleanrl_ppo.py``'s masked GAE, ``train/mappo/runner.py``'s collect
-and eval).  The port's loops launch every op of every step from Python; on
-the card a trainer captures each loop once as a CUDA graph and replays it
-on every later call, the step kernels (K1, K3, K5, K7, K9) launched inside
-the captured region.  The loop body is one Python function, which the CPU
-runs eagerly and the capture records, so the CPU tests cover what the card
-replays.
+The counterpart of JAX compiling a trainer's update into one program
+(``jax.jit`` of its ``lax.scan``s: ``train/selfplay.py``'s rollout, credit
+scans and epochs, ``train/mappo/runner.py``'s collect and eval,
+``train/mappo/trainer.py``'s ``train``).  The port's loops launch every op
+from Python; on the card a trainer captures each loop once as a CUDA graph
+and replays it on every later call, the step kernels (K1, K3, K5, K7, K9)
+launched inside the captured rollouts.  The loop body is one Python
+function, which the CPU runs eagerly and the capture records, so the CPU
+tests cover what the card replays.  An update's graph holds forward, loss,
+backward, the gradient clip and the optimizer step of every minibatch; it
+steps state that lives as long as the trainer (``train/optim.py``): the
+parameters, gradients zeroed in place, Adam's moments, step counts and
+learning rate on the card (``capturable``), and MAPPO's ValueNorm
+statistics, and a checkpoint load copies into those very tensors.
 
 **The rule** (``captures``): a trainer on a CUDA device whose collector
-steps a kernel is captured.  A kernel collector's step holds no host
+steps a kernel captures its loops.  A kernel collector's step holds no host
 collective, on a mesh too (K1's one all-reduce of the episode counter is in
 ``unpack``, outside the graph).  The plain collector stays eager: on a mesh
 its ``batched_step`` all-gathers a scalar every step (gloo, which the
 card's mesh runs use, cannot be captured), and its envs' steps read the
-host (Hanabi's deal), so no graph can hold them.  The CPU is always eager.
-There is no switch: a capture or a launch that fails raises.
+host (Hanabi's deal), so no graph can hold them.  On a mesh the epochs stay
+eager as well: their gradient all-reduce (``all_reduce_grads``) and, for
+the self-play trainer's fallback minibatches, the advantage's all-gather
+are gloo calls.  The CPU is always eager.  There is no switch: a capture or
+a launch that fails raises.
 
 ``LoopGraph`` holds one loop: its first call runs the loop eagerly on the
 graph's side stream and returns that result (the warm-up, which fills the
@@ -37,6 +45,7 @@ same graph overwrites: a caller that keeps a result across calls clones it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
@@ -91,9 +100,10 @@ class LoopGraph:
 
     ``args`` is a tree of CUDA tensors (``tree_map``) of the same shapes,
     dtypes and structure on every call; ``fn`` reads nothing else that
-    changes between calls other than in place (the nets' parameters, which
-    the optimizers update in place, and the ``generators``, each registered
-    with the graph).  ``fn`` returns a tree of tensors."""
+    changes between calls other than in place (the nets' parameters and the
+    optimizers' and ValueNorm's state, which the updates write in place,
+    and the ``generators``, each registered with the graph).  ``fn``
+    returns a tree of tensors."""
 
     def __init__(self, fn: Callable, generators: Sequence[torch.Generator] = ()):
         self.fn = fn
@@ -105,6 +115,11 @@ class LoopGraph:
 
     def __call__(self, *args):
         if self.graph is None:
+            # a trainer and its graphs form a reference cycle, so a dropped
+            # trainer's graph pools stay reserved until the cycle collector
+            # runs: collect them before this warm-up and capture, which
+            # would otherwise run short of memory after a few trainers
+            gc.collect()
             out = self._warm_up(args)
             self._capture(args)
             return out

@@ -9,12 +9,12 @@ from .config import COLAB_RECIPE, MAPPOConfig, config_from_args, get_config
 from .policy import MAPPOPolicy
 from .runner import MAPPORunner
 from .trainer import RMAPPOTrainer, huber
-from .valuenorm import (ValueNormState, init_valuenorm, popart_update, vn_denormalize,
-                        vn_normalize, vn_update)
+from .valuenorm import (ValueNormState, init_valuenorm, popart_update, vn_copy_,
+                        vn_denormalize, vn_normalize, vn_update)
 
 __all__ = [
     "MAPPOBuffer", "after_update", "chooseinsert", "compute_returns", "init_buffer", "insert",
     "COLAB_RECIPE", "MAPPOConfig", "config_from_args", "get_config", "MAPPOPolicy",
     "MAPPORunner", "RMAPPOTrainer", "huber", "ValueNormState", "init_valuenorm",
-    "popart_update", "vn_denormalize", "vn_normalize", "vn_update",
+    "popart_update", "vn_copy_", "vn_denormalize", "vn_normalize", "vn_update",
 ]

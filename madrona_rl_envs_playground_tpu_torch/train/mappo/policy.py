@@ -7,13 +7,14 @@ Counterpart of ``madrona_rl_envs_playground_tpu/train/mappo/policy.py``
 states returned), two optimizers (lr and critic_lr, eps ``opti_eps``): Adam,
 or AdamW where ``weight_decay`` is set (optax's ``adamw``: every parameter
 decays, scaled by the learning rate), each behind optax's global-norm clip
-(``train/optim.py``, applied by the trainer before the step), and the
-linear learning-rate decay.  The JAX policy keeps its state in a pytree;
-here the modules and optimizers hold it.  Sampling goes through
-``models/common.dist_sample`` with an explicit ``torch.Generator``.  On a
-mesh the entropy is the mean over the whole batch (``evaluate_actions``'s
-``mesh``) and ``get_actions`` takes this rank's rows of the noise drawn for
-the whole batch (``rows``).
+(``train/optim.py``, applied by the trainer before the step; on the card
+with their state and learning rate there, as optax's
+``inject_hyperparams``), and the linear learning-rate decay.  The JAX
+policy keeps its state in a pytree; here the modules and optimizers hold
+it.  Sampling goes through ``models/common.dist_sample`` with an explicit
+``torch.Generator``.  On a mesh the entropy is the mean over the whole
+batch (``evaluate_actions``'s ``mesh``) and ``get_actions`` takes this
+rank's rows of the noise drawn for the whole batch (``rows``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from ...device import DeviceLike, resolve_device
 from ...models.common import dist_entropy, dist_log_prob, dist_sample
 from ...models.mappo_nets import R_Actor, R_Critic
-from ..optim import GlobalMean
+from ..optim import GlobalMean, adam
 from .config import MAPPOConfig
 
 
@@ -46,10 +47,8 @@ class MAPPOPolicy:
         self.critic_opt = self._optimizer(self.critic, cfg.critic_lr)
 
     def _optimizer(self, net, lr):
-        if self.cfg.weight_decay:
-            return torch.optim.AdamW(net.parameters(), lr=lr, eps=self.cfg.opti_eps,
-                                     weight_decay=self.cfg.weight_decay)
-        return torch.optim.Adam(net.parameters(), lr=lr, eps=self.cfg.opti_eps)
+        return adam(net.parameters(), lr, eps=self.cfg.opti_eps,
+                    weight_decay=self.cfg.weight_decay)
 
     def get_actions(self, share_obs, obs, rnn_states, rnn_states_critic, masks,
                     available_actions=None, deterministic: bool = False,

@@ -15,12 +15,16 @@ On the card, where the collector steps a kernel (``captured``;
 ``train/graphs.py`` states the rule), the collect, ``compute_returns``'
 reverse loop and one ``episode_length`` block of ``evaluate`` (by the same
 rule for its own collector) are each captured once as a CUDA graph and
-replayed from then on, the counterpart of JAX's jitted scans; each one's
+replayed from then on, the counterpart of JAX's jitted scans, and without
+a mesh so is ``trainer.train``'s epochs (``RMAPPOTrainer``); each one's
 first call runs eagerly as the warm-up (it also settles cuDNN's choice for
-the CNN base) and captures.  Injected actions always run eagerly.  The carry (env state, last output, masks and
-hidden states) is copied into a graph's static inputs before each replay
-and read back from its outputs after it, so ``restore`` and a changed
-``bstate`` take effect at the next call.
+the CNN base) and captures.  Injected actions and given permutations
+always run eagerly.  The carry (env state, last output, masks and hidden
+states) is copied into a graph's static inputs before each replay and read
+back from its outputs after it, so ``restore`` and a changed ``bstate``
+take effect at the next call; ``restore`` copies the nets, optimizer
+states and ValueNorm statistics into the tensors the train graph steps
+(``trainer.update_state``), so nothing is captured again.
 
 The env steps through its collector (``train/fused_collect.py``), so on the
 card through its step kernel (K1 for Overcooked, K9 for Acrobot) and on the
@@ -73,13 +77,13 @@ from ...parallel.mesh import shard_batch_pytree
 from ...utils.checkpoint import load_pytree, save_pytree
 from ...utils.logger import ScalarLogger
 from ..fused_collect import make_fused_collect
-from ..optim import all_sum
+from ..optim import all_sum, load_optimizer_state_
 from ..graphs import LoopGraph, captures
 from .buffer import MAPPOBuffer, compute_returns, init_buffer, returns_scan
 from .config import MAPPOConfig
 from .policy import MAPPOPolicy
 from .trainer import RMAPPOTrainer
-from .valuenorm import ValueNormState
+from .valuenorm import ValueNormState, vn_copy_
 
 
 class MAPPORunner:
@@ -107,7 +111,10 @@ class MAPPORunner:
                 share_obs_shape = obs_shape
         self.policy = MAPPOPolicy(cfg, obs_shape=obs_shape, share_obs_shape=share_obs_shape,
                                   num_actions=env.num_actions, seed=cfg.seed, device=dev)
-        self.trainer = RMAPPOTrainer(cfg, self.policy, mesh=mesh)
+        self._fused = make_fused_collect(env, self.N, dev, mesh=mesh)
+        # on a mesh the epochs all-reduce over gloo: eager
+        self.trainer = RMAPPOTrainer(cfg, self.policy, mesh=mesh,
+                                     captured=captures(dev, self._fused) and mesh is None)
         self.run_dir = run_dir
         self.logger = ScalarLogger(run_dir) if run_dir and is_primary() else None
         self.sample_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -124,7 +131,6 @@ class MAPPORunner:
         self._rnn = self.policy.actor.zero_states(B, dev)
         self._rnnc = self.policy.critic.zero_states(B, dev)
         self._rnn_shape = tuple(self._rnn.shape)
-        self._fused = make_fused_collect(env, self.N, dev, mesh=mesh)
         # evaluate runs over the whole batch: on a mesh, on rank 0 through
         # a collector of its own; its sampler's seed is reset at every call
         self._eval_fused = self._fused if mesh is None else make_fused_collect(env, self.N, dev)
@@ -320,21 +326,22 @@ class MAPPORunner:
             self.mesh.barrier()
 
     def restore(self, path: Optional[str] = None) -> None:
-        """Load a ``save``; a checkpoint without the optimizer states
-        (parameters and ValueNorm only) keeps the runner's own.  Rank 0
-        reads."""
+        """Load a ``save``, written on the card or on the CPU; a checkpoint
+        without the optimizer states (parameters and ValueNorm only) keeps
+        the runner's own.  Everything is copied in place into the tensors
+        a captured ``train`` steps.  Rank 0 reads."""
         file = os.path.join(path or self.run_dir, "checkpoint.pt")
         if self.mesh is None:
             blob = load_pytree(file)
         else:
             blob = self.mesh.broadcast_object(load_pytree(file) if is_primary() else None)
-        pol, dev = self.policy, self.device
+        pol = self.policy
         pol.actor.load_state_dict(blob["actor_params"])
         pol.critic.load_state_dict(blob["critic_params"])
         if "actor_opt" in blob:
-            pol.actor_opt.load_state_dict(blob["actor_opt"])
-            pol.critic_opt.load_state_dict(blob["critic_opt"])
-        self.trainer.vn = ValueNormState(**{k: v.to(dev) for k, v in blob["vn"].items()})
+            load_optimizer_state_(pol.actor_opt, blob["actor_opt"])
+            load_optimizer_state_(pol.critic_opt, blob["critic_opt"])
+        vn_copy_(self.trainer.vn, ValueNormState(**blob["vn"]))
 
     # ---- deterministic eval (train/tester.py analog) ------------------
     def evaluate(self, episodes: int = 1, deterministic: bool = True) -> float:

@@ -26,6 +26,18 @@ Counterpart of ``RMAPPOTrainer`` in
   reference's ``cal_value_loss``; each network behind its own global-norm
   clip and Adam.
 
+On the card, where the runner's collector steps a kernel and there is no
+mesh (``captured``; ``train/graphs.py``), ``train``'s epochs are captured
+as one CUDA graph on the first call and replayed from then on, the
+counterpart of JAX's jitted ``train``: the buffer is copied into the
+graph's inputs, the minibatch permutations are drawn inside it from the
+trainer's generator (registered with the graph), and it reads and writes
+state that lives as long as the trainer: the nets' parameters and
+gradients (zeroed in place), both optimizers' state and learning rates
+(``train/optim.py``'s ``adam``; ``_set_lrs`` fills the rates in place, so
+the linear decay reaches every replay) and the ValueNorm statistics
+(``vn_copy_``).
+
 On a mesh (``parallel/mesh.py``; the buffer holds this rank's streams) the
 advantage normalisation, the ValueNorm moments, every loss and the metrics
 are over the whole batch (``train/optim.py``'s ``GlobalMean``), and the
@@ -43,12 +55,14 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ...models.mappo_nets import get_critic_head
-from ..optim import GlobalMean, all_reduce_grads, all_sum, clip_grad_global_norm_
+from ..graphs import LoopGraph
+from ..optim import (GlobalMean, all_reduce_grads, all_sum, clip_grad_global_norm_, set_lr,
+                     update_tensors)
 from .buffer import MAPPOBuffer
 from .config import MAPPOConfig
 from .policy import MAPPOPolicy
-from .valuenorm import (ValueNormState, init_valuenorm, popart_update, vn_denormalize,
-                        vn_normalize, vn_update)
+from .valuenorm import (ValueNormState, init_valuenorm, popart_update, vn_copy_,
+                        vn_denormalize, vn_normalize, vn_update)
 
 
 def huber(e: torch.Tensor, delta: float) -> torch.Tensor:
@@ -57,15 +71,37 @@ def huber(e: torch.Tensor, delta: float) -> torch.Tensor:
 
 
 class RMAPPOTrainer:
-    def __init__(self, cfg: MAPPOConfig, policy: MAPPOPolicy, mesh=None):
+    """``captured``: replay ``train`` from a CUDA graph (the runner decides:
+    a kernel collector on the card; never on a mesh, whose gradient
+    all-reduce is a gloo call)."""
+
+    def __init__(self, cfg: MAPPOConfig, policy: MAPPOPolicy, mesh=None, captured: bool = False):
         if cfg.use_popart and cfg.use_valuenorm:
             raise ValueError("use_popart and use_valuenorm are exclusive")
+        if captured and mesh is not None:
+            raise ValueError("a trainer on a mesh updates eagerly")
         self.cfg = cfg
         self.policy = policy
         self.mesh = mesh
         self.recurrent = cfg.use_recurrent_policy or cfg.use_naive_recurrent_policy
+        # the statistics live as long as the trainer: updated in place
         self.vn: ValueNormState = init_valuenorm(policy.device)
         self.generator = torch.Generator(device=policy.device).manual_seed(cfg.seed)
+        self._train_graph = LoopGraph(self._train_body, [self.generator]) if captured else None
+
+    @property
+    def captured(self) -> bool:
+        return self._train_graph is not None
+
+    def update_state(self):
+        """The tensors ``train`` writes in place, in a fixed order: both
+        nets' parameters and gradients, both optimizers' state and learning
+        rates (``train/optim.py``'s ``update_tensors``) and the ValueNorm
+        statistics; a captured ``train`` reads and writes these very
+        tensors."""
+        pol = self.policy
+        return (update_tensors([pol.actor, pol.critic], [pol.actor_opt, pol.critic_opt])
+                + [getattr(self.vn, f.name) for f in dataclasses.fields(self.vn)])
 
     @property
     def _update_mesh(self):
@@ -120,10 +156,10 @@ class RMAPPOTrainer:
             # the value head so that its outputs are preserved
             head = get_critic_head(pol.critic)
             with torch.no_grad():
-                k2, b2, self.vn = popart_update(head.weight[0], head.bias[0], self.vn, ret,
-                                                mesh=mesh)
+                k2, b2, vn = popart_update(head.weight[0], head.bias[0], self.vn, ret, mesh=mesh)
                 head.weight[0] = k2
                 head.bias[0] = b2
+                vn_copy_(self.vn, vn)
             stats_updated = True
 
         values, logp, entropy = pol.evaluate_actions(sobs, obs, rnn, rnnc, act, msk, avail, amsk,
@@ -136,8 +172,9 @@ class RMAPPOTrainer:
                                       else {"like": per}))(per)
         v_loss, vn = self._value_loss(self.vn, values, vp, ret, amsk, stats_updated)
 
-        pol.actor_opt.zero_grad(set_to_none=True)
-        pol.critic_opt.zero_grad(set_to_none=True)
+        # in place: a captured step reads the gradients the first backward made
+        pol.actor_opt.zero_grad(set_to_none=False)
+        pol.critic_opt.zero_grad(set_to_none=False)
         (pg_loss - entropy * cfg.entropy_coef).backward()
         (v_loss * cfg.value_loss_coef).backward()
         all_reduce_grads(mesh, list(pol.actor.parameters()) + list(pol.critic.parameters()))
@@ -146,7 +183,8 @@ class RMAPPOTrainer:
             clip_grad_global_norm_(pol.critic.parameters(), cfg.max_grad_norm)
         pol.actor_opt.step()
         pol.critic_opt.step()
-        self.vn = vn
+        if vn is not self.vn:
+            vn_copy_(self.vn, vn)
         return torch.stack([v_loss.detach(), pg_loss.detach(), entropy.detach(),
                             GlobalMean(mesh, like=ratio)(ratio).detach()])
 
@@ -169,12 +207,12 @@ class RMAPPOTrainer:
             return (adv_raw - mean_adv) / (torch.sqrt(var_adv) + 1e-5)
 
     def _set_lrs(self, lrs: Optional[Tuple[float, float]]) -> None:
+        """JAX's ``tree_set`` of both learning rates: on the card filled into
+        the optimizers' rate tensors, which a captured ``train`` reads."""
         cfg, pol = self.cfg, self.policy
         actor_lr, critic_lr = lrs if lrs is not None else (cfg.lr, cfg.critic_lr)
-        for group in pol.actor_opt.param_groups:
-            group["lr"] = actor_lr
-        for group in pol.critic_opt.param_groups:
-            group["lr"] = critic_lr
+        set_lr(pol.actor_opt, actor_lr)
+        set_lr(pol.critic_opt, critic_lr)
 
     def _perm(self, epoch: int, n: int, perms) -> torch.Tensor:
         dev = self.policy.device
@@ -190,7 +228,9 @@ class RMAPPOTrainer:
         from the trainer's generator, or takes ``perms[epoch]`` where given
         (tests replay JAX's order); recurrent, a permutation of the chunks
         (``_train_recurrent``).  Returns the mean losses, entropy and ratio
-        (on a mesh, of the whole batch, on every rank)."""
+        (on a mesh, of the whole batch, on every rank).  A captured trainer
+        replays its graph unless ``perms`` are given; its info is the
+        graph's, which the next replay overwrites."""
         self._set_lrs(lrs)
         cfg, nmb = self.cfg, self.cfg.num_mini_batch
         T = buf.rewards.shape[0]
@@ -202,8 +242,17 @@ class RMAPPOTrainer:
             buf = MAPPOBuffer(**{f.name: self.mesh.all_gather(getattr(buf, f.name), dim=1,
                                                               what="buffers")
                                  for f in dataclasses.fields(buf)})
+        if self.captured and perms is None:
+            return self._train_graph(buf)
+        return self._train_body(buf, perms)
+
+    def _train_body(self, buf: MAPPOBuffer, perms: Optional[Sequence[torch.Tensor]] = None):
+        """The epochs over ``buf``: the loop that the CPU runs and the card
+        captures."""
         if self.recurrent:
             return self._train_recurrent(buf, perms)
+        cfg, nmb = self.cfg, self.cfg.num_mini_batch
+        local = cfg.shard_local_minibatch and nmb > 1
         T, M = buf.rewards.shape
         advantages = self._advantages(buf)
         B = T * M

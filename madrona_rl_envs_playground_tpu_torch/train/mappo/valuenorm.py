@@ -10,6 +10,10 @@ Counterpart of ``madrona_rl_envs_playground_tpu/train/mappo/valuenorm.py``:
   which rescales the critic's output layer so that its outputs survive the
   new statistics.  It shares the ValueNorm state.
 
+The functions return new states; a trainer keeps one state for its
+lifetime and ``vn_copy_``s each new one into it, since a CUDA graph of its
+update reads and writes those tensors.
+
 On a mesh (``parallel/mesh.py``) the batch moments are those of the whole
 batch: this rank's sums and the global count, summed over the ranks in one
 all-reduce.
@@ -38,6 +42,14 @@ def init_valuenorm(device: DeviceLike = None) -> ValueNormState:
     dev = resolve_device(device)
     z = lambda: torch.zeros((), dtype=torch.float32, device=dev)  # noqa: E731
     return ValueNormState(running_mean=z(), running_mean_sq=z(), debiasing_term=z())
+
+
+def vn_copy_(dst: ValueNormState, src: ValueNormState) -> None:
+    """Copy ``src``'s statistics into ``dst``'s tensors in place (from either
+    device)."""
+    with torch.no_grad():
+        for f in dataclasses.fields(dst):
+            getattr(dst, f.name).copy_(getattr(src, f.name))
 
 
 def _debiased_mean_var(s: ValueNormState, epsilon=1e-5) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -25,18 +25,24 @@ slots only.  Their logits are masked to the legal moves, and their critic
 reads ``state_obs`` where it is not the obs (``env.state_is_obs``).
 
 The JAX ``lax.scan`` loops become Python loops: the rollout's T steps
-(``_rollout_body``) and the advantage's credit and GAE scans
-(``_scan_body``).  On the card, where the collector steps a kernel
-(``captured``; ``train/graphs.py`` states the rule), each is captured once
-as a CUDA graph and replayed on every later update, the counterpart of
-JAX's one jit; the first update runs them eagerly as the warm-up.  Injected
-actions always run eagerly.  ``run`` drives updates and logs their
-metrics; ``save``/``load`` checkpoint the network, Adam and the sampler's
-generator state (JAX's ``key``) and, by default, the batched env state, so
-a restore resumes mid-stream exactly (a ``load`` into a captured trainer
-reaches its next replay: the state is copied into the graph's inputs at
-every rollout, and the generator, registered with the graph, is set in
-place).
+(``_rollout_body``), the advantage's credit and GAE scans (``_scan_body``)
+and the epochs over the minibatches (``_update_body``: forward, backward,
+clip and Adam a minibatch).  On the card, where the collector steps a
+kernel (``captured``; ``train/graphs.py`` states the rule), each is
+captured once as a CUDA graph and replayed on every later update, the
+counterpart of JAX's one jit; the first update runs them eagerly as the
+warm-up.  On a mesh the epochs stay eager: their gradient all-reduce is a
+gloo call.  Adam keeps its state on the card (``train/optim.py``'s
+``adam``), and the gradients are zeroed in place, so a replay steps the
+same tensors as the eager loop.  Injected actions always run eagerly.
+``run`` drives updates and logs their metrics; ``save``/``load``
+checkpoint the network, Adam and the sampler's generator state (JAX's
+``key``) and, by default, the batched env state, so a restore resumes
+mid-stream exactly.  A ``load`` into a captured trainer reaches its next
+replays: the env state is copied into the rollout graph's inputs at every
+rollout, the generator, registered with the graph, is set in place, and
+the parameters and Adam's moments and step counts are copied into the
+tensors the update graph steps (``update_state``).
 
 On a ``mesh`` (``parallel/mesh.py``) each rank holds its rows of the
 ``num_envs`` worlds, steps them through the mesh's collector
@@ -76,7 +82,8 @@ from ..utils.checkpoint import load_pytree, save_pytree
 from .cleanrl_ppo import Rollout, active_masked_gae, plain_gae
 from .fused_collect import make_fused_collect
 from .graphs import LoopGraph, captures
-from .optim import GlobalMean, all_reduce_grads, all_sum, clip_grad_global_norm_
+from .optim import (GlobalMean, adam, all_reduce_grads, all_sum, clip_grad_global_norm_,
+                    load_optimizer_state_, update_tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,17 +169,19 @@ class SelfPlayPPO:
             env.obs_size, env.num_actions, cfg.hidden, cfg.num_layers,
             use_bf16=cfg.use_bf16, state_size=env.state_size,
             generator=init_gen).to(self.device)
-        self.opt = torch.optim.Adam(self.net.parameters(), lr=cfg.lr, eps=1e-5)
+        self.opt = adam(self.net.parameters(), cfg.lr, eps=1e-5)
         self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
         # envs with a step kernel (Overcooked layouts inside its envelope,
         # Cartpole, Balance Beam, Acrobot, 2-player Hanabi) step through it;
         # the rest (e.g. many_player_layout-scale grids, 3-player Hanabi)
         # get the plain collector
         self._fused = make_fused_collect(env, num_envs, self.device, mesh=mesh)
-        self._rollout_graph = self._scan_graph = None
+        self._rollout_graph = self._scan_graph = self._update_graph = None
         if captures(self.device, self._fused):
             self._rollout_graph = LoopGraph(self._rollout_body, [self.sample_gen])
             self._scan_graph = LoopGraph(self._scan_body)
+            if mesh is None:  # on a mesh the epochs all-reduce over gloo
+                self._update_graph = LoopGraph(self._update_body)
         bstate, out = batched_reset(env, num_envs, device=self.device)
         self.state = {"bstate": bstate, "out": out}
         if mesh is not None:
@@ -191,8 +200,16 @@ class SelfPlayPPO:
     @property
     def captured(self) -> bool:
         """Whether the rollout and the advantage scans replay CUDA graphs
-        (``train/graphs.py``'s rule: a kernel collector on the card)."""
+        (``train/graphs.py``'s rule: a kernel collector on the card), and
+        without a mesh the epochs too."""
         return self._rollout_graph is not None
+
+    def update_state(self):
+        """The tensors an update writes in place, in a fixed order: the
+        parameters, their gradients and Adam's moments, step counts and
+        learning rate (``train/optim.py``'s ``update_tensors``); a captured
+        update reads and writes these very tensors."""
+        return update_tensors([self.net], [self.opt])
 
     def _rollout(self, actions: Optional[torch.Tensor] = None):
         """Phase 1.  ``actions`` ([T, N, P] int), when given, replaces the
@@ -372,14 +389,24 @@ class SelfPlayPPO:
     def _update(self, chunks: Dict[str, torch.Tensor]):
         """Phase 3.  Returns the last epoch's (pg, v, entropy, kl) losses,
         each the mean over its minibatches (on a mesh, this rank's shares,
-        unless the update ran on the whole batch)."""
+        unless the update ran on the whole batch).  On a captured trainer
+        without a mesh, a replay of the epochs' graph, whose losses the
+        next replay overwrites."""
+        update = self._update_graph if self._update_graph is not None else self._update_body
+        return update(chunks)
+
+    def _update_body(self, chunks: Dict[str, torch.Tensor]):
+        """The epochs over the minibatch ``chunks``: the loop that the CPU
+        runs and the card captures.  The gradients are zeroed in place (the
+        first backward of the trainer makes them), so that a replay writes
+        the tensors Adam's captured step reads."""
         nmb = self.cfg.num_minibatches
         last = None
         for _ in range(self.cfg.update_epochs):
             auxes = []
             for i in range(nmb):
                 loss, aux = self._mb_loss({k: v[i] for k, v in chunks.items()})
-                self.opt.zero_grad(set_to_none=True)
+                self.opt.zero_grad(set_to_none=False)
                 loss.backward()
                 all_reduce_grads(self._update_mesh, self.net.parameters())
                 clip_grad_global_norm_(self.net.parameters(), self.cfg.max_grad_norm)
@@ -423,15 +450,18 @@ class SelfPlayPPO:
             self.mesh.barrier()
 
     def load(self, path: str) -> None:
-        """Restore a ``save``.  Env state saved at another batch size is
-        dropped: a policy-only restore.  On a mesh rank 0 reads and every
+        """Restore a ``save``, written on the card or on the CPU.  Env state
+        saved at another batch size is dropped: a policy-only restore.  The
+        parameters and Adam's state are copied in place into the tensors
+        that the update graph steps (``update_state``), so a captured
+        trainer is not captured again.  On a mesh rank 0 reads and every
         rank takes its rows."""
         if self.mesh is None:
             blob = load_pytree(path)
         else:
             blob = self.mesh.broadcast_object(load_pytree(path) if is_primary() else None)
         self.net.load_state_dict(blob["net"])
-        self.opt.load_state_dict(blob["opt"])
+        load_optimizer_state_(self.opt, blob["opt"])
         self.sample_gen.set_state(blob["sample_gen"])
         if "bstate" in blob and _batch_size(blob["bstate"]) == self.num_envs:
             if self.mesh is not None:

@@ -2,7 +2,8 @@
 
 There is no card here, so ``CPUGraph`` stands in for the CUDA graph: a
 ``LoopGraph`` whose capture runs the loop once on its static inputs (its
-launches taken back out, its generators' states restored, as a capture runs
+launches taken back out, its generators' states and, for a trainer's
+update, the tensors it writes in place restored, as a capture runs
 nothing) and whose replay runs the loop again on the static inputs and
 copies the result into the static outputs.  Consecutive replays therefore
 return the same buffers, as the card's replays do, and these tests hold the
@@ -71,9 +72,22 @@ def _overlapping(t: torch.Tensor) -> bool:
     return any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape))
 
 
+UPDATE_BODIES = ("_update_body", "_train_body")  # SelfPlayPPO's, RMAPPOTrainer's
+
+
+def _held(fn):
+    """The tensors a trainer's update writes in place (``update_state``), where
+    ``fn`` is the update body of a trainer; none for the other loops."""
+    if getattr(fn, "__name__", None) not in UPDATE_BODIES:
+        return []
+    return fn.__self__.update_state()
+
+
 class CPUGraph(graphs.LoopGraph):
     """``LoopGraph`` with its CUDA calls replaced by running the loop (see
-    the module docstring)."""
+    the module docstring).  A replay of a trainer's update also checks that
+    it steps the very tensors the capture saw (the same storage), as a CUDA
+    graph would."""
 
     def _warm_up(self, args):
         self.stream = "cpu"
@@ -82,6 +96,8 @@ class CPUGraph(graphs.LoopGraph):
     def _capture(self, args):
         self._inputs = graphs.tree_map(torch.clone, args)
         states = [g.get_state() for g in self.generators]
+        held = _held(self.fn)
+        saved = [t.clone() for t in held]
         before = graphs.launch_counts()
         self._outputs = self.fn(*self._inputs)
         after = graphs.launch_counts()
@@ -89,9 +105,15 @@ class CPUGraph(graphs.LoopGraph):
         graphs.add_launches(self.launches, -1)
         for g, st in zip(self.generators, states):
             g.set_state(st)
+        with torch.no_grad():
+            for t, s in zip(held, saved, strict=True):
+                t.copy_(s)
+        self.held_ptrs = [t.data_ptr() for t in held]
         self.graph = self
 
     def replay(self):
+        assert [t.data_ptr() for t in _held(self.fn)] == self.held_ptrs, \
+            "the update's state was replaced since the capture"
         out = self.fn(*self._inputs)
         for dst, src in zip(graphs.tree_leaves(self._outputs), graphs.tree_leaves(out),
                             strict=True):
