@@ -11,11 +11,13 @@ reference exposes two single-policy gym surfaces beside its multi-agent API:
   over the 2-player Balance Beam env with a random partner,
   ``MultiDiscrete`` obs / ``Discrete(4)`` action.
 
-Here both are thin host adapters over ``DeviceVecEnv``'s stepping, so on the
-card each step is one launch of the env's step kernel (K5 for Cartpole, K7
-for Balance Beam); on the CPU the plain version steps.  ``step`` takes numpy
-or tensor actions and returns numpy arrays (SB3's VecEnv contract, and
-JAX's), so on the card each step copies its outputs to the host.  Spaces
+Here both are thin host adapters over ``DeviceVecEnv.n_step``, so on the
+card each step is one replay of the env's captured step, one launch of its
+step kernel (K5 for Cartpole, K7 for Balance Beam); on the CPU the plain
+version steps.  ``step`` takes numpy or tensor actions and returns numpy
+arrays (SB3's VecEnv contract, and JAX's) that the caller owns: on the card
+each step copies its outputs to the host, and on the CPU they are views of
+the step's own tensors, which no later step writes.  Spaces
 come from ``gymnasium`` where it is installed, else from this package's
 metadata spaces.  The auto-reset is fused in the step (the post-done
 observation is the next episode's first), as in the reference sims.

@@ -10,7 +10,8 @@ to its partner agent, and abstract ``n_step``/``n_reset``.
 ``DeviceVecEnv`` is the counterpart of JAX's ``TpuVecEnv`` and of the
 reference's ``MadronaEnv`` adapter (``vectorenv.py:262-346``): it steps the
 env through its collector (``train/fused_collect.py``: the env's step kernel
-on the card, its plain version on the CPU), and its per-seat views are axis-1
+on the card, its plain version on the CPU), replayed from a CUDA graph on
+the card as JAX jits ``Simulator.step``, and its per-seat views are axis-1
 slices of the batched ``StepOutput``.
 
 ``SyncVectorEnv`` (``vectorenv.py:348-425`` analog) drives N host-side
@@ -30,6 +31,7 @@ from ..core.batch import batched_reset
 from ..core.types import BatchState, StepOutput
 from ..device import DeviceLike, resolve_device
 from ..train.fused_collect import make_fused_collect
+from ..train.graphs import LoopGraph, captures, tree_map
 from .agents import VectorAgent
 from .spaces import Box, Discrete, MultiBinary
 from .vectorobservation import VectorObservation
@@ -186,7 +188,15 @@ class DeviceVecEnv(VectorMultiAgentEnv):
     ``num_envs`` worlds, on the mesh's device, stepped through the mesh's
     collector (``core/batch.py``'s offsets; K1 for Overcooked): actions,
     seat views, rewards and dones are this rank's, and every rank steps and
-    resets together."""
+    resets together.
+
+    Where ``train/graphs.py``'s rule captures the collector (a kernel
+    collector on the card), ``n_step`` replays a CUDA graph of
+    ``_step_body`` (the action transpose and the step kernel) from its
+    first call on, the carry passed in through the graph's input copy, and
+    hands the caller clones of the step's outputs, which later steps leave
+    as they are; the plain collector, ``reset`` and the ``bstate`` setter
+    stay eager."""
 
     def __init__(
         self,
@@ -212,8 +222,17 @@ class DeviceVecEnv(VectorMultiAgentEnv):
         self._start_episode = start_episode
         self._global_envs = num_envs
         self._collect = make_fused_collect(env, num_envs, self.device, mesh=sharding)
+        self._step_graph = None
+        if captures(self.device, self._collect):
+            self._step_graph = LoopGraph(self._step_body, owner=self)
         self.observation_space, self.share_observation_space, self.action_space = _spaces(env)
         self._reset_batch()
+
+    @property
+    def captured(self) -> bool:
+        """Whether ``n_step`` replays a CUDA graph (``train/graphs.py``'s
+        rule: a kernel collector on the card)."""
+        return self._step_graph is not None
 
     def _reset_batch(self) -> StepOutput:
         bstate, self.last_out = batched_reset(self.env, self._global_envs, self._start_episode,
@@ -223,17 +242,28 @@ class DeviceVecEnv(VectorMultiAgentEnv):
 
     @property
     def bstate(self) -> BatchState:
-        """The batch state in ``core/batch.py``'s layout (unpacked on read,
-        by every rank of a mesh together; assigning one packs it)."""
-        return self._collect.unpack(self._carry)
+        """The batch state in ``core/batch.py``'s layout (unpacked on read
+        from a copy of the carry, which a replay overwrites, by every rank
+        of a mesh together; assigning one packs it)."""
+        return self._collect.unpack(tree_map(torch.clone, self._carry))
 
     @bstate.setter
     def bstate(self, bstate: BatchState) -> None:
         self._carry = self._collect.pack(bstate)
 
+    def _step_body(self, carry, actions: torch.Tensor):
+        """One step of every world from the collector's ``carry`` with the
+        seats' ``actions`` [P, N]: the function that the CPU runs and the
+        card captures.  Returns (carry', StepOutput)."""
+        return self._collect.step(carry, actions.t().to(torch.int32))
+
     def n_step(self, actions: torch.Tensor):
-        self._carry, out = self._collect.step(
-            self._carry, actions.t().to(device=self.device, dtype=torch.int32))
+        actions = actions.to(device=self.device, dtype=torch.int32)
+        if self._step_graph is None:
+            self._carry, out = self._step_body(self._carry, actions)
+        else:
+            self._carry, out = self._step_graph(self._carry, actions)
+            out = tree_map(torch.clone, out)  # the graph's buffers: the next step rewrites them
         self.last_out = out
         return _seat_views(out, self.n_players), out.reward.t(), out.done, {}
 

@@ -34,6 +34,7 @@ lands only in the env's own last-active slot, the intended semantics.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -47,7 +48,8 @@ from ..models.cleanrl import CleanRLNetwork
 from ..models.common import dist_entropy, dist_log_prob, dist_sample
 from ..utils.checkpoint import load_pytree, save_pytree
 from ..utils.logger import maybe_logger
-from .optim import clip_grad_global_norm_
+from .graphs import LoopGraph, captures, tree_leaves, tree_map
+from .optim import adam, clip_grad_global_norm_, load_optimizer_state_, set_lr, update_tensors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +118,9 @@ def active_masked_gae(buf: Rollout, next_value: torch.Tensor, next_done: torch.T
     (this rank's streams) the ranks add up, in one all-reduce, the streams
     still waiting at each slot.  On the card the self-play trainer replays
     this loop inside its captured advantage scans (``train/selfplay.py``'s
-    ``_scan_body``); the mesh case stays eager, since masked envs on a mesh
-    step the plain collector, which is never captured (``train/graphs.py``).
+    ``_scan_body``) and ``CleanPPOAgent`` inside its captured train; the
+    mesh case stays eager, since masked envs on a mesh step the plain
+    collector, which is never captured (``train/graphs.py``).
     Returns (advantages [T, M], returns [T, M], trainable active [T, M]
     bool)."""
     T = buf.values.shape[0]
@@ -182,8 +185,17 @@ class CleanPPOAgent(VectorAgent):
     It works on the env's device (``envs.device``), samples with its own
     ``torch.Generator`` there (seeded with ``seed``; the network's
     parameters come from a CPU generator of the same seed), and keeps its
-    metrics as tensors, read to the host only when a logger exists.  A
-    ``target_kl`` reads one approximate KL to the host per epoch."""
+    metrics as tensors, read to the host only when a logger exists.  Its
+    device functions are JAX's jitted ones: ``_act`` (recording or not),
+    ``_update_impl`` (the reward credit) and ``_train_impl`` (the masked
+    GAE and the epochs, a ``target_kl`` stop selected on the device).  None
+    of them reads the host: they write the carry, the buffer row ``_t`` (a
+    device scalar; the host keeps ``step`` for the train boundary), the
+    parameters, gradients and Adam's state in place.  So on a CUDA device
+    each is captured as a CUDA graph at its first call and replayed on
+    every later one (``train/graphs.py``); the CPU runs them eagerly.  What
+    the agent hands its caller (actions, each train's metrics) stays as it
+    was: a replay's outputs are cloned."""
 
     def __init__(
         self,
@@ -234,22 +246,61 @@ class CleanPPOAgent(VectorAgent):
 
         self.net = CleanRLNetwork(obs_size, self.num_actions, hidden, state_size=state_size,
                                   generator=torch.Generator().manual_seed(seed)).to(self.device)
-        self.opt = torch.optim.Adam(self.net.parameters(), lr=lr, eps=1e-5)
+        self.opt = adam(self.net.parameters(), lr, eps=1e-5)
         self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
 
         self.carry = init_carry(num_steps, self.num_envs, obs_size, state_size,
                                 self.num_actions, self.device)
+        self._t = torch.zeros((), dtype=torch.int64, device=self.device)
         self._all_legal = torch.ones((self.num_envs, self.num_actions), dtype=torch.bool,
                                      device=self.device)
         self._envs_ar = torch.arange(self.num_envs, device=self.device)
+        self._pre_step: Optional[List[torch.Tensor]] = None  # a target_kl stop's copies
+
+        self._record_graph = self._sample_graph = self._update_graph = self._train_graph = None
+        if captures(self.device):
+            self._record_graph = LoopGraph(functools.partial(self._act, record=True),
+                                           [self.sample_gen], owner=self)
+            self._sample_graph = LoopGraph(functools.partial(self._act, record=False),
+                                           [self.sample_gen], owner=self)
+            self._update_graph = LoopGraph(self._update_impl, owner=self)
+            self._train_graph = LoopGraph(self._train_impl, owner=self)
 
         self.global_step = 0
-        self.step = 0
+        self._step = 0
         self.num_updates = num_updates
         self.updates = 1
         self.start_time = time.time()
         self.logger = maybe_logger(run_dir or f"runs/{name}", verbose)
         self._last_metrics: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def step(self) -> int:
+        """The rollout step of the next recorded action: the host's copy of
+        the buffer row ``_t``, which the device functions advance and
+        reset.  Assigning it sets both."""
+        return self._step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self._step = value
+        self._t.fill_(value)
+
+    @property
+    def captured(self) -> bool:
+        """Whether the device functions replay CUDA graphs (on a CUDA device)."""
+        return self._train_graph is not None
+
+    def carry_state(self) -> List[torch.Tensor]:
+        """What an act and a reward credit write in place: the carry's
+        tensors and the buffer row ``_t``."""
+        return tree_leaves(self.carry) + [self._t]
+
+    def update_state(self) -> List[torch.Tensor]:
+        """What a train writes in place: the parameters, their gradients,
+        Adam's moments, step counts and learning rate
+        (``train/optim.py``'s ``update_tensors``), then ``carry_state``."""
+        return update_tensors([self.net], [self.opt]) + self.carry_state()
 
     # ---------------- device functions --------------------------------
     @torch.no_grad()
@@ -259,19 +310,17 @@ class CleanPPOAgent(VectorAgent):
         action = dist_sample(self.sample_gen, logits)
         if not record:
             return action
-        c, t = self.carry, self.step
+        c, t = self.carry, self._t
         buf = c.buf
-        buf.obs[t] = obs_f
-        buf.states[t] = state_f
-        buf.actions[t] = action
-        buf.action_masks[t] = action_mask
-        buf.logprobs[t] = dist_log_prob(logits, action)
-        buf.values[t] = value
-        buf.dones[t] = c.next_done
-        buf.active[t] = active
-        buf.rewards[t] = 0.0
+        row = t.view(1)
+        for dst, src in ((buf.obs, obs_f), (buf.states, state_f), (buf.actions, action),
+                         (buf.action_masks, action_mask),
+                         (buf.logprobs, dist_log_prob(logits, action)), (buf.values, value),
+                         (buf.dones, c.next_done), (buf.active, active)):
+            dst.index_copy_(0, row, src.to(dst.dtype)[None])
+        buf.rewards.index_fill_(0, row, 0.0)
         c.next_done.zero_()
-        c.last_active.masked_fill_(active, t)
+        c.last_active.copy_(torch.where(active, t, c.last_active))
         c.new_game &= ~active
         return action
 
@@ -282,8 +331,8 @@ class CleanPPOAgent(VectorAgent):
         dones = dones.to(device=self.device, dtype=torch.bool).reshape(-1)
         running = c.running_rewards + rewards
         add = torch.where(c.new_game, torch.zeros_like(rewards), rewards)
-        # each env's (last_active, env) slot is distinct, so += is exact
-        c.buf.rewards[c.last_active, self._envs_ar] += add
+        # each env's (last_active, env) slot is distinct, so the sum is exact
+        c.buf.rewards.view(-1).index_add_(0, c.last_active * self.num_envs + self._envs_ar, add)
         any_done = dones.any()
         n_done = dones.sum()
         mean_done_ret = torch.where(
@@ -292,10 +341,11 @@ class CleanPPOAgent(VectorAgent):
             / torch.clamp(n_done, min=1),
             torch.zeros((), device=self.device))
         c.next_done |= dones
-        c.running_rewards = torch.where(dones, torch.zeros_like(running), running)
+        c.running_rewards.copy_(torch.where(dones, torch.zeros_like(running), running))
         c.new_game |= dones
         c.mean_return_sum += mean_done_ret
         c.num_returns += any_done.to(torch.int32)
+        self._t += 1
 
     def _loss(self, b):
         logits, newvalue = self.net(b["obs"], b["states"], b["masks"])
@@ -325,7 +375,27 @@ class CleanPPOAgent(VectorAgent):
         return total, torch.stack([pg_loss, v_loss, ent_loss, approx_kl, old_kl,
                                    clipfrac]).detach()
 
-    def _train_impl(self, final_state, final_active, lr: float) -> Dict[str, torch.Tensor]:
+    def _optimizer_step(self, stopped: Optional[torch.Tensor]) -> None:
+        """Adam's step; where ``stopped`` (a device bool) is set, the step
+        is computed and dropped: what it writes (the parameters and Adam's
+        state) is selected back from copies taken before it (JAX's
+        ``epoch_body``)."""
+        if stopped is None:
+            self.opt.step()
+            return
+        state = update_tensors([self.net], [self.opt])
+        with torch.no_grad():
+            if self._pre_step is None:
+                self._pre_step = [torch.empty_like(x) for x in state]
+            for h, x in zip(self._pre_step, state, strict=True):
+                h.copy_(x)
+            self.opt.step()
+            for h, x in zip(self._pre_step, state, strict=True):
+                x.copy_(torch.where(stopped, h, x))
+
+    def _train_impl(self, final_state, final_active) -> Dict[str, torch.Tensor]:
+        """The train at a rollout's end: GAE, the epochs and the metrics,
+        at the learning rate ``set_lr`` gave the optimizer."""
         c = self.carry
         buf = c.buf
         with torch.no_grad():
@@ -354,27 +424,23 @@ class CleanPPOAgent(VectorAgent):
                  "actions": flat(buf.actions), "masks": flat(buf.action_masks),
                  "logprobs": flat(buf.logprobs), "adv": b_adv, "returns": b_returns,
                  "values": b_values, "mean": masked_mean}
-        for group in self.opt.param_groups:
-            group["lr"] = lr
 
-        # each epoch is one full-batch step; once an epoch's pre-update
-        # approx_kl exceeds target_kl, the later epochs leave the params and
-        # Adam untouched (JAX computes and drops them: their losses still
-        # make the metrics)
-        stopped = False
+        # each epoch is one full-batch step (JAX's epoch_body); once an
+        # epoch's pre-update approx_kl exceeds target_kl, the later epochs'
+        # steps are dropped on the device (their losses still make the
+        # metrics).  The gradients are zeroed in place, so that a replay
+        # writes the tensors the captured step reads.
+        stopped = None
         auxes = []
         for _ in range(self.update_epochs):
-            if stopped:
-                with torch.no_grad():
-                    _, aux = self._loss(batch)
-            else:
-                loss, aux = self._loss(batch)
-                self.opt.zero_grad(set_to_none=True)
-                loss.backward()
-                clip_grad_global_norm_(self.net.parameters(), self.max_grad_norm)
-                self.opt.step()
-                if self.target_kl is not None:
-                    stopped = bool(aux[3] > self.target_kl)
+            loss, aux = self._loss(batch)
+            self.opt.zero_grad(set_to_none=False)
+            loss.backward()
+            clip_grad_global_norm_(self.net.parameters(), self.max_grad_norm)
+            self._optimizer_step(stopped)
+            if self.target_kl is not None:
+                exceeded = aux[3] > self.target_kl
+                stopped = exceeded if stopped is None else stopped | exceeded
             auxes.append(aux)
         auxes = torch.stack(auxes)
 
@@ -387,7 +453,10 @@ class CleanPPOAgent(VectorAgent):
                 c.num_returns > 0,
                 c.mean_return_sum / torch.clamp(c.num_returns, min=1),
                 torch.full_like(c.mean_return_sum, float("nan")))
-        metrics = {
+            c.mean_return_sum.zero_()
+            c.num_returns.zero_()
+            self._t.zero_()
+        return {
             "pg_loss": auxes[-1, 0],
             "v_loss": auxes[-1, 1],
             "entropy": auxes[-1, 2],
@@ -397,20 +466,18 @@ class CleanPPOAgent(VectorAgent):
             "explained_variance": explained_var,
             "mean_return": mean_return,
         }
-        c.mean_return_sum = torch.zeros_like(c.mean_return_sum)
-        c.num_returns = torch.zeros_like(c.num_returns)
-        return metrics
 
     # ---------------- host interface ----------------------------------
     def get_action(self, obs: VectorObservation, record: bool = True) -> torch.Tensor:
         if self.global_step > 0 and self.global_step % self.num_steps == 0 and record:
-            self.step = 0
+            self._step = 0  # the train resets _t
             lr = (
                 self.lr * (1.0 - (self.updates - 1.0) / self.num_updates)
                 if self.anneal_lr
                 else self.lr
             )
-            metrics = self._train_impl(obs.state, obs.active, lr)
+            set_lr(self.opt, lr)
+            metrics = _replayed(self._train_graph, self._train_impl, obs.state, obs.active)
             self._last_metrics = metrics
             if self.logger is not None:
                 for k, v in metrics.items():
@@ -426,12 +493,17 @@ class CleanPPOAgent(VectorAgent):
                 self.logger.flush()
             self.updates += 1
 
+        if record and self._step >= self.num_steps:
+            raise IndexError(f"{self.name}: a recorded action at step {self._step} of a "
+                             f"{self.num_steps}-step rollout")
         mask = obs.action_mask if obs.action_mask is not None else self._all_legal
-        return self._act(obs.obs, obs.state, mask, obs.active, record)
+        graph = self._record_graph if record else self._sample_graph
+        return _replayed(graph, functools.partial(self._act, record=record),
+                         obs.obs, obs.state, mask, obs.active)
 
     def update(self, rewards: torch.Tensor, dones: torch.Tensor) -> None:
-        self._update_impl(rewards, dones)
-        self.step += 1
+        _replayed(self._update_graph, self._update_impl, rewards, dones)
+        self._step += 1  # the reward credit advances _t
         self.global_step += 1
 
     # ---- checkpointing -------------------------------------------------
@@ -448,12 +520,30 @@ class CleanPPOAgent(VectorAgent):
         })
 
     def load(self, path: str) -> None:
+        """Restore a ``save``, written on the card or on the CPU, into the
+        tensors the graphs step: the parameters and Adam's state are copied
+        in place (``load_optimizer_state_``), so a captured agent is not
+        captured again.  The sampler's state is taken where it was saved on
+        the same kind of device; the card's generator (Philox) and the
+        CPU's (Mersenne Twister) draw different streams, so across devices
+        the agent keeps its own."""
         blob = load_pytree(path)
         self.net.load_state_dict(blob["net"])
-        self.opt.load_state_dict(blob["opt"])
-        self.sample_gen.set_state(blob["sample_gen"])
+        load_optimizer_state_(self.opt, blob["opt"])
+        gen_state = blob["sample_gen"]
+        if gen_state.shape == self.sample_gen.get_state().shape:
+            self.sample_gen.set_state(gen_state)
         self.updates = blob["updates"]
         self.global_step = blob["global_step"]
+
+
+def _replayed(graph: Optional[LoopGraph], body: Callable, *args):
+    """``body(*args)``, or where the agent holds ``graph`` (on the card) its
+    replay, whose outputs, the graph's own buffers, are cloned: the next
+    replay overwrites them."""
+    if graph is None:
+        return body(*args)
+    return tree_map(torch.clone, graph(*args))
 
 
 def run_decentralized(venv, ego: CleanPPOAgent, num_env_steps: int,

@@ -1,27 +1,34 @@
-"""CUDA graphs of the trainers' loops: the T-step rollouts and the PPO epochs.
+"""CUDA graphs of the port's device loops: the trainers' rollouts and PPO
+epochs, and the decentralized agent's and vector env's steps.
 
-The counterpart of JAX compiling a trainer's update into one program
-(``jax.jit`` of its ``lax.scan``s: ``train/selfplay.py``'s rollout, credit
-scans and epochs, ``train/mappo/runner.py``'s collect and eval,
-``train/mappo/trainer.py``'s ``train``).  The port's loops launch every op
-from Python; on the card a trainer captures each loop once as a CUDA graph
-and replays it on every later call, the step kernels (K1, K3, K5, K7, K9)
-launched inside the captured rollouts.  The loop body is one Python
-function, which the CPU runs eagerly and the capture records, so the CPU
-tests cover what the card replays.  An update's graph holds forward, loss,
-backward, the gradient clip and the optimizer step of every minibatch; it
-steps state that lives as long as the trainer (``train/optim.py``): the
-parameters, gradients zeroed in place, Adam's moments, step counts and
-learning rate on the card (``capturable``), and MAPPO's ValueNorm
-statistics, and a checkpoint load copies into those very tensors.
+The counterpart of JAX compiling these functions into programs (``jax.jit``
+of a trainer's ``lax.scan``s: ``train/selfplay.py``'s rollout, credit scans
+and epochs, ``train/mappo/runner.py``'s collect and eval,
+``train/mappo/trainer.py``'s ``train``; and of ``CleanPPOAgent``'s ``_act``,
+``_update_impl`` and ``_train_impl`` and ``Simulator.step`` beneath
+``TpuVecEnv.n_step``).  The port's loops launch every op from Python; on
+the card each owner captures each function once as a CUDA graph and replays
+it on every later call, the step kernels (K1, K3, K5, K7, K9) launched
+inside the captured steps.  The body is one Python function, which the CPU
+runs eagerly and the capture records, so the CPU tests cover what the card
+replays.  An update's graph holds forward, loss, backward, the gradient
+clip and the optimizer step of every minibatch; it steps state that lives
+as long as its owner (``train/optim.py``): the parameters, gradients zeroed
+in place, Adam's moments, step counts and learning rate on the card
+(``capturable``), MAPPO's ValueNorm statistics and the agent's rollout
+buffers and step index, and a checkpoint load copies into those very
+tensors.
 
-**The rule** (``captures``): a trainer on a CUDA device whose collector
-steps a kernel captures its loops.  A kernel collector's step holds no host
-collective, on a mesh too (K1's one all-reduce of the episode counter is in
-``unpack``, outside the graph).  The plain collector stays eager: on a mesh
-its ``batched_step`` all-gathers a scalar every step (gloo, which the
-card's mesh runs use, cannot be captured), and its envs' steps read the
-host (Hanabi's deal), so no graph can hold them.  On a mesh the epochs stay
+**The rule** (``captures``): a trainer or a ``DeviceVecEnv`` on a CUDA
+device whose collector steps a kernel captures its loops; a
+``CleanPPOAgent`` on a CUDA device captures its act, reward credit and
+train, whatever env feeds it (none of them reads the host or calls a
+collective).  A kernel collector's step holds no host collective, on a
+mesh too (K1's one all-reduce of the episode counter is in ``unpack``,
+outside the graph).  The plain collector stays eager: on a mesh its
+``batched_step`` all-gathers a scalar every step (gloo, which the card's
+mesh runs use, cannot be captured), and its envs' steps read the host
+(Hanabi's deal), so no graph can hold them.  On a mesh the epochs stay
 eager as well: their gradient all-reduce (``all_reduce_grads``) and, for
 the self-play trainer's fallback minibatches, the advantage's all-gather
 are gloo calls.  The CPU is always eager.  There is no switch: a capture or
@@ -39,13 +46,15 @@ Python calls: the capture's calls are taken back out, and every replay adds
 them again.
 
 A replay returns the graph's static outputs, which the next replay of the
-same graph overwrites: a caller that keeps a result across calls clones it.
+same graph overwrites: a caller that keeps a result across calls clones it
+(the agent and the vector env clone what they hand their callers).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import weakref
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
@@ -55,12 +64,17 @@ from ..ops import acrobot, balance, cartpole, hanabi, overcooked
 # the modules whose wrappers count their launches in LAUNCHES
 LAUNCH_MODULES = (overcooked, cartpole, balance, acrobot, hanabi)
 
+# the owners whose first capture has collected the dropped graphs
+_COLLECTED = weakref.WeakSet()
 
-def captures(device, collector) -> bool:
-    """Whether a trainer on ``device`` stepping through ``collector``
-    (``train/fused_collect.py``; on a mesh, the mesh's collector) captures
-    its loops: on a CUDA device with a kernel collector."""
-    return torch.device(device).type == "cuda" and collector.kernel
+
+def captures(device, collector=None) -> bool:
+    """Whether a trainer or a ``DeviceVecEnv`` on ``device`` stepping
+    through ``collector`` (``train/fused_collect.py``; on a mesh, the
+    mesh's collector) captures its loops: on a CUDA device with a kernel
+    collector.  Without a collector (the agent's functions, which step no
+    env): on a CUDA device."""
+    return torch.device(device).type == "cuda" and (collector is None or collector.kernel)
 
 
 def tree_map(fn: Callable, tree):
@@ -100,14 +114,18 @@ class LoopGraph:
 
     ``args`` is a tree of CUDA tensors (``tree_map``) of the same shapes,
     dtypes and structure on every call; ``fn`` reads nothing else that
-    changes between calls other than in place (the nets' parameters and the
-    optimizers' and ValueNorm's state, which the updates write in place,
-    and the ``generators``, each registered with the graph).  ``fn``
-    returns a tree of tensors."""
+    changes between calls other than in place (the nets' parameters, the
+    optimizers' and ValueNorm's state and the agent's carry, which the
+    bodies write in place, and the ``generators``, each registered with the
+    graph).  ``fn`` returns a tree of tensors.  ``owner`` is the object
+    whose graphs these are (a trainer, an agent, an env): the dropped
+    graphs are collected before the first capture of each owner's graphs
+    only, and before every capture of a graph without one."""
 
-    def __init__(self, fn: Callable, generators: Sequence[torch.Generator] = ()):
+    def __init__(self, fn: Callable, generators: Sequence[torch.Generator] = (), owner=None):
         self.fn = fn
         self.generators = tuple(generators)
+        self.owner = owner
         self.stream = None  # the side stream of the warm-up and the capture
         self.graph = None
         self.launches: Dict[Tuple[str, str], int] = {}  # a replay's wrapper calls
@@ -115,11 +133,7 @@ class LoopGraph:
 
     def __call__(self, *args):
         if self.graph is None:
-            # a trainer and its graphs form a reference cycle, so a dropped
-            # trainer's graph pools stay reserved until the cycle collector
-            # runs: collect them before this warm-up and capture, which
-            # would otherwise run short of memory after a few trainers
-            gc.collect()
+            self._collect()
             out = self._warm_up(args)
             self._capture(args)
             return out
@@ -128,6 +142,18 @@ class LoopGraph:
         self.graph.replay()
         add_launches(self.launches)
         return self._outputs
+
+    def _collect(self) -> None:
+        """An owner and its graphs form a reference cycle, so a dropped
+        owner's graph pools stay reserved until the cycle collector runs:
+        collect them before the warm-up and capture of an owner's first
+        graph (0.2-0.4 s each on the card), which would otherwise run short
+        of memory after a few trainers."""
+        if self.owner is None:
+            gc.collect()
+        elif self.owner not in _COLLECTED:
+            gc.collect()
+            _COLLECTED.add(self.owner)
 
     def _warm_up(self, args):
         """The first call, eager on the side stream that the capture will

@@ -138,10 +138,10 @@ class MAPPORunner:
         self._collect_graph = self._returns_graph = None
         self._eval_graphs = {}  # deterministic -> the eval block's graph
         if captures(dev, self._fused):
-            self._collect_graph = LoopGraph(self._collect_body, [self.sample_gen])
+            self._collect_graph = LoopGraph(self._collect_body, [self.sample_gen], owner=self)
             self._returns_graph = LoopGraph(functools.partial(
                 returns_scan, gamma=cfg.gamma, gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
-                use_proper_time_limits=cfg.use_proper_time_limits))
+                use_proper_time_limits=cfg.use_proper_time_limits), owner=self)
         self.episode_rewards = []  # average episode score of each update
 
     @property

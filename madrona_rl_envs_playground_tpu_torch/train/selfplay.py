@@ -178,10 +178,10 @@ class SelfPlayPPO:
         self._fused = make_fused_collect(env, num_envs, self.device, mesh=mesh)
         self._rollout_graph = self._scan_graph = self._update_graph = None
         if captures(self.device, self._fused):
-            self._rollout_graph = LoopGraph(self._rollout_body, [self.sample_gen])
-            self._scan_graph = LoopGraph(self._scan_body)
+            self._rollout_graph = LoopGraph(self._rollout_body, [self.sample_gen], owner=self)
+            self._scan_graph = LoopGraph(self._scan_body, owner=self)
             if mesh is None:  # on a mesh the epochs all-reduce over gloo
-                self._update_graph = LoopGraph(self._update_body)
+                self._update_graph = LoopGraph(self._update_body, owner=self)
         bstate, out = batched_reset(env, num_envs, device=self.device)
         self.state = {"bstate": bstate, "out": out}
         if mesh is not None:

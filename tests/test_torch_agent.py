@@ -143,11 +143,13 @@ def sync_from_jax(t_agent, j_agent) -> None:
                     st["step"].fill_(int(adam.count))
 
 
-def run_both(case, j_env, t_env, seed, **agent_kw):
+def run_both(case, j_env, t_env, seed, captured=False, **agent_kw):
     """Ego (seat 0) and partner (seat 1) agents of both packages over
     ``STEPS`` steps of the same actions; every check happens inside.
-    Returns each train's (name, Adam steps the port applied, towers
-    compared)."""
+    ``captured``: the port's env and agents replay graphs (the caller made
+    the capture rule answer yes), and each train is checked around its
+    graph's call.  Returns each train's (name, Adam steps the port applied,
+    towers compared)."""
     acts = legal_schedule(t_env, STEPS, seed)
     seeds = {"ego": 2, "partner": 1}
     j_table = {}
@@ -169,15 +171,16 @@ def run_both(case, j_env, t_env, seed, **agent_kw):
         t_agent = t_ppo.CleanPPOAgent(t_venv, name, seed=s, **kw)
         load_flax_params(t_agent.net, _np_params(j_agent.params))
         agents[name] = (t_agent, j_agent)
+    assert all(obj.captured is captured for obj in (t_venv, agents["ego"][0],
+                                                     agents["partner"][0]))
     j_venv.add_partner_agent(agents["partner"][1])
     t_venv.add_partner_agent(agents["partner"][0])
-    t_step = {}
-    t_calls = {id(a.sample_gen): name for name, (a, _) in agents.items()}
+    t_calls = {id(a.sample_gen): (name, a) for name, (a, _) in agents.items()}
 
     def t_inject(generator, logits):
-        name = t_calls[id(generator)]
-        t_step[name] = t_step.get(name, -1) + 1
-        return torch.from_numpy(acts[t_step[name], :, 0 if name == "ego" else 1].copy())
+        # the action of the agent's step (a graph's capture samples again)
+        name, agent = t_calls[id(generator)]
+        return torch.from_numpy(acts[agent.global_step, :, 0 if name == "ego" else 1].copy())
 
     case.setattr(j_ppo, "dist_sample", j_inject)
     case.setattr(t_ppo, "dist_sample", t_inject)
@@ -216,8 +219,9 @@ def run_both(case, j_env, t_env, seed, **agent_kw):
             return metrics
         return run
 
+    train = "_train_graph" if captured else "_train_impl"
     for name, (t_agent, j_agent) in agents.items():
-        t_agent._train_impl = checked_train(name, t_agent, j_agent, t_agent._train_impl)
+        setattr(t_agent, train, checked_train(name, t_agent, j_agent, getattr(t_agent, train)))
 
     j_obs, t_obs = j_venv.reset(), t_venv.reset()
     dones = 0

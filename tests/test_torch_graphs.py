@@ -3,7 +3,8 @@
 There is no card here, so ``CPUGraph`` stands in for the CUDA graph: a
 ``LoopGraph`` whose capture runs the loop once on its static inputs (its
 launches taken back out, its generators' states and, for a trainer's
-update, the tensors it writes in place restored, as a capture runs
+update and the decentralized agent's bodies, the tensors they write in
+place restored, as a capture runs
 nothing) and whose replay runs the loop again on the static inputs and
 copies the result into the static outputs.  Consecutive replays therefore
 return the same buffers, as the card's replays do, and these tests hold the
@@ -72,22 +73,30 @@ def _overlapping(t: torch.Tensor) -> bool:
     return any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape))
 
 
-UPDATE_BODIES = ("_update_body", "_train_body")  # SelfPlayPPO's, RMAPPOTrainer's
+# SelfPlayPPO's, RMAPPOTrainer's and CleanPPOAgent's updates
+UPDATE_BODIES = ("_update_body", "_train_body", "_train_impl")
+CARRY_BODIES = ("_act", "_update_impl")  # CleanPPOAgent's act and reward credit
 
 
 def _held(fn):
-    """The tensors a trainer's update writes in place (``update_state``), where
-    ``fn`` is the update body of a trainer; none for the other loops."""
-    if getattr(fn, "__name__", None) not in UPDATE_BODIES:
-        return []
-    return fn.__self__.update_state()
+    """The tensors a body writes in place: a trainer's or the agent's update
+    its ``update_state``, the agent's act (a partial of ``_act``) and reward
+    credit its ``carry_state``; none for the other loops."""
+    fn = getattr(fn, "func", fn)
+    name = getattr(fn, "__name__", None)
+    if name in UPDATE_BODIES:
+        return fn.__self__.update_state()
+    if name in CARRY_BODIES:
+        return fn.__self__.carry_state()
+    return []
 
 
 class CPUGraph(graphs.LoopGraph):
     """``LoopGraph`` with its CUDA calls replaced by running the loop (see
-    the module docstring).  A replay of a trainer's update also checks that
-    it steps the very tensors the capture saw (the same storage), as a CUDA
-    graph would."""
+    the module docstring).  A replay of a trainer's update, or of the
+    agent's act, reward credit or train, also checks that it steps the
+    very tensors the capture saw (the same storage), as a CUDA graph
+    would."""
 
     def _warm_up(self, args):
         self.stream = "cpu"
@@ -113,7 +122,7 @@ class CPUGraph(graphs.LoopGraph):
 
     def replay(self):
         assert [t.data_ptr() for t in _held(self.fn)] == self.held_ptrs, \
-            "the update's state was replaced since the capture"
+            "the state the body writes was replaced since the capture"
         out = self.fn(*self._inputs)
         for dst, src in zip(graphs.tree_leaves(self._outputs), graphs.tree_leaves(out),
                             strict=True):
