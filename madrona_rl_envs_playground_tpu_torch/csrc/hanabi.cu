@@ -82,9 +82,18 @@
 // last-move fields are written before K4 reads them; the masks and LCG
 // words are 32-bit).  A game started inside keeps every field within int8
 // until it ends: it makes at most M-D+P draws and discards and C
-// completions, so no count passes 127.  The
-// wrapper refuses a state outside the envelope before launch
-// (ops/hanabi.py::envelope_violations), so nothing is wrapped.
+// completions, so no count passes 127.  K4 checks its entry state on the
+// card, with no host read: as the launch transcodes a world it tests every
+// value of the world's column against its row's (lo, hi)
+// (ops/hanabi.py::rollout_envelope, copied to the card once); a block
+// notes whether any of its worlds lies outside, and after one grid-wide
+// sync no block steps if any block did.  Such a launch is refused on the
+// card: block 0 writes the envelope word (each row's min and max over the
+// batch and the bitmask of the rows outside, the formula of
+// ops/hanabi.py::envelope_violations) into mapped pinned host memory, and
+// every world returns its state, action word and counter as given, done
+// count -1 and checksum INT32_MIN.  The wrapper raises on the word at the
+// next launch or check_rollout_envelope, so nothing is wrapped silently.
 //
 // Exactness.  The only float work is the draw position int32(f32(size) *
 // u): u = (word & 0xFFFFFF) * 2^-24 is exact, __fmul_rn rounds the product
@@ -100,7 +109,9 @@
 // bytes bound it: its loads and stores are whole 16-byte words of
 // consecutive lanes, the state's rows 128 B a warp.  Below some thousands
 // of worlds the launch itself (a memset of the scan's flags and one kernel)
-// takes the time.  K4 reads and writes the state once per launch and does a
+// takes the time.  K4 reads and writes the state once per launch (its
+// envelope check compares the values it transcodes, two compares a row, and
+// adds one grid-wide sync) and does a
 // few hundred integer operations per world-step (the step, the legal draw,
 // one refreshed seat's closed-form sum), so operations bound it; in
 // practice the grid-wide sync and the scan of the block counts each step,
@@ -1033,15 +1044,117 @@ __device__ __forceinline__ uint8_t* record(uint8_t* carry, uint4* onchip, int fi
   return carry + (size_t)n * Rec<C, R>::BYTES;
 }
 
+// ---- K4's envelope check -------------------------------------------------
+//
+// tab: int32 [2, rows], each row's lo then each row's hi
+// (ops/hanabi.py::rollout_envelope).  The envelope word, in mapped pinned
+// host memory (hk_envelope_record), int32: [0] 1 once a refused launch
+// wrote the rest (the host clears it after reading), then the bitmask of
+// the rows outside ((rows + 31) / 32 words, row r at bit r % 32 of word
+// r / 32), then every row's min, then every row's max over the batch.
+__host__ __device__ constexpr int envelope_bitmask_words(int rows) { return (rows + 31) / 32; }
+__host__ __device__ constexpr int envelope_ints(int rows) {
+  return 1 + envelope_bitmask_words(rows) + 2 * rows;
+}
+constexpr int REFUSED_DCNT = -1;  // a refused launch's done counts
+constexpr int32_t REFUSED_CHK = INT32_MIN;  // and checksums
+
+__device__ __forceinline__ bool outside(const int* __restrict__ tab, int rows, int r, int v) {
+  return v < __ldg(tab + r) || v > __ldg(tab + rows + r);
+}
+
+// Whether a world's scalars and hands, as load_game read them, leave the
+// envelope (the board's rows are tested where the entry reads them).
+__device__ __forceinline__ bool game_outside(const Cfg& c, const int* __restrict__ tab,
+                                             const Game& g) {
+  bool bad = false;
+#pragma unroll
+  for (int k = 0; k < NSCAL; ++k) bad |= outside(tab, c.rows, c.r_scal + k, g.s[k]);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int i = p * H + h;
+      bad |= outside(tab, c.rows, c.r_hc + i, g.hc[p][h]);
+      bad |= outside(tab, c.rows, c.r_hp + i, (int)g.hp[p][h]);
+      bad |= outside(tab, c.rows, c.r_kc + i, g.kc[p][h]);
+      bad |= outside(tab, c.rows, c.r_kr + i, g.kr[p][h]);
+    }
+    bad |= outside(tab, c.rows, c.r_hs + p, g.hs[p]);
+  }
+  return bad;
+}
+
+// A launch whose entry state leaves the envelope: block 0 writes the
+// envelope word unless an earlier refused launch's word is still unread
+// (that one is reported first), and every world's outputs take their
+// refused values.  Error path only (not inlined, so that it takes no
+// registers from the steps): block 0 reads the whole state.  smem: the
+// block's SCAN_SMEM_INTS ints, free outside the steps.
+__device__ __noinline__ void refuse(const Cfg& c, const int* __restrict__ tab,
+                                    int* __restrict__ word, const int32_t* __restrict__ st_in,
+                                    const int32_t* __restrict__ arng_in,
+                                    const int64_t* __restrict__ cnt_in, int32_t* __restrict__ st,
+                                    int32_t* __restrict__ arng, int32_t* __restrict__ dcnt,
+                                    int32_t* __restrict__ chk, int64_t* __restrict__ cnt_out,
+                                    int N, int slots, int* smem) {
+  if (blockIdx.x == 0) {
+    volatile int* w = word;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (!__syncthreads_or(threadIdx.x == 0 && w[0] != 0)) {
+      const int nb = envelope_bitmask_words(c.rows);
+      uint32_t bits = 0u;  // thread 0's word of the bitmask being built
+      for (int r = 0; r < c.rows; ++r) {
+        int mn = INT32_MAX, mx = INT32_MIN;
+        for (int n = threadIdx.x; n < N; n += THREADS) {
+          const int v = st_in[(size_t)r * N + n];
+          mn = min(mn, v);
+          mx = max(mx, v);
+        }
+        mn = __reduce_min_sync(episode::FULL_MASK, mn);
+        mx = __reduce_max_sync(episode::FULL_MASK, mx);
+        if (lane == 0) smem[warp] = mn, smem[THREADS / 32 + warp] = mx;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          for (int i = 1; i < THREADS / 32; ++i)
+            mn = min(mn, smem[i]), mx = max(mx, smem[THREADS / 32 + i]);
+          w[1 + nb + r] = mn;
+          w[1 + nb + c.rows + r] = mx;
+          if (mn < tab[r] || mx > tab[c.rows + r]) bits |= 1u << (r & 31);
+          if ((r & 31) == 31 || r == c.rows - 1) w[1 + (r >> 5)] = (int)bits, bits = 0u;
+        }
+        __syncthreads();  // smem is refilled for the next row
+      }
+      if (threadIdx.x == 0) {
+        __threadfence_system();  // the rows before the flag that announces them
+        w[0] = 1;
+        __threadfence_system();
+      }
+    }
+  }
+  for (int s = 0; s < slots; ++s) {
+    const int n = world(slots, s);
+    if (n < N) {
+      for (int r = 0; r < c.rows; ++r) st[(size_t)r * N + n] = st_in[(size_t)r * N + n];
+      arng[n] = arng_in[n];
+      dcnt[n] = REFUSED_DCNT;
+      chk[n] = REFUSED_CHK;
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) cnt_out[0] = cnt_in[0];
+}
+
 #define HK_ROLLOUT_PARAMS                                                                  \
   const Cfg c, const int32_t* __restrict__ st_in, const int8_t* __restrict__ obs_in,         \
       const int8_t* __restrict__ own_in, const bool* __restrict__ mask_in,                   \
       const int32_t* __restrict__ arng_in, const int64_t* __restrict__ cnt_in,               \
-      int32_t* __restrict__ st, int32_t* __restrict__ arng, int32_t* __restrict__ dcnt,      \
-      int32_t* __restrict__ chk, int64_t* __restrict__ cnt_out, uint8_t* __restrict__ carry, \
-      int* __restrict__ totals, int N, int T, int slots
-#define HK_ROLLOUT_ARGS \
-  c, st_in, obs_in, own_in, mask_in, arng_in, cnt_in, st, arng, dcnt, chk, cnt_out, carry, totals, N, T, slots
+      const int* __restrict__ tab, int32_t* __restrict__ st, int32_t* __restrict__ arng,     \
+      int32_t* __restrict__ dcnt, int32_t* __restrict__ chk, int64_t* __restrict__ cnt_out,  \
+      uint8_t* __restrict__ carry, int* __restrict__ totals, int* __restrict__ word, int N,  \
+      int T, int slots
+#define HK_ROLLOUT_ARGS                                                                      \
+  c, st_in, obs_in, own_in, mask_in, arng_in, cnt_in, tab, st, arng, dcnt, chk, cnt_out, carry, \
+      totals, word, N, T, slots
 
 template <int C, int R, bool ONCHIP>
 __device__ __forceinline__ void rollout(HK_ROLLOUT_PARAMS) {
@@ -1056,9 +1169,11 @@ __device__ __forceinline__ void rollout(HK_ROLLOUT_PARAMS) {
   for (int m = threadIdx.x; m < 16 * L::DECK_VECS; m += THREADS)
     deck0[m] = m < L::M ? (uint8_t)orig_card(c, m) : 0;
 
-  // the launch-time state into the carry; each seat's sum of its launch-time
+  // the launch-time state into the carry, every value tested against the
+  // envelope as it is read; each seat's sum of its launch-time
   // obs, own and mask bytes taken by the warp together, one world at a time,
   // so that the lanes read consecutive bytes
+  bool bad = false;
   for (int s = 0; s < slots; ++s) {
     const int n = world(slots, s), warp_first = n - lane;
     Extra e;
@@ -1080,15 +1195,40 @@ __device__ __forceinline__ void rollout(HK_ROLLOUT_PARAMS) {
       uint8_t* rec = record<C, R, ONCHIP>(carry, onchip, first, n);
       Game g;
       load_game(c, in, g);
-      for (int m = 0; m < L::M; ++m) rec[L::B_DECK + m] = (uint8_t)in.deck(m);
-      for (int k = 0; k < L::CR; ++k) rec[L::B_DISC + k] = (uint8_t)in[c.r_disc + k];
-      for (int k = 0; k < C; ++k) rec[L::B_FW + k] = (uint8_t)in.fw(k);
+      bad |= game_outside(c, tab, g);
+      for (int m = 0; m < L::M; ++m) {
+        const int v = in.deck(m);
+        bad |= outside(tab, c.rows, c.r_deck + m, v);
+        rec[L::B_DECK + m] = (uint8_t)v;
+      }
+      for (int k = 0; k < L::CR; ++k) {
+        const int v = in[c.r_disc + k];
+        bad |= outside(tab, c.rows, c.r_disc + k, v);
+        rec[L::B_DISC + k] = (uint8_t)v;
+      }
+      for (int k = 0; k < C; ++k) {
+        const int v = in.fw(k);
+        bad |= outside(tab, c.rows, c.r_fw + k, v);
+        rec[L::B_FW + k] = (uint8_t)v;
+      }
       e.fd = fd_share<C, R>(rec);
       e.arng = (uint32_t)arng_in[n];
       e.chk = 0;
       e.dcnt = 0;
       store_rec(rec, g, e);
     }
+  }
+  // whether any block read a value outside the envelope: each block's flag
+  // in the odd steps' totals (first written by step 1, after step 0's sync)
+  int* outside_blocks = totals + G;
+  const int block_bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) outside_blocks[blockIdx.x] = block_bad;
+  grid.sync();
+  int any = 0;
+  for (int b = threadIdx.x; b < G; b += THREADS) any |= __ldcg(outside_blocks + b);
+  if (__syncthreads_or(any)) {  // the same for every block: none steps
+    refuse(c, tab, word, st_in, arng_in, cnt_in, st, arng, dcnt, chk, cnt_out, N, slots, smem);
+    return;
   }
   uint32_t base = (uint32_t)cnt_in[0];
   for (int t = 0; t < T; ++t) {
@@ -1413,19 +1553,19 @@ int rollout_shape(int N, int device, const void** kernel, int* blocks, int* slot
 template <int C, int R>
 int launch_rollout(const Cfg& c, const int32_t* st_in, const int8_t* obs_in,
                    const int8_t* own_in, const bool* mask_in, const int32_t* arng_in,
-                   const int64_t* cnt_in, int32_t* st, int32_t* arng, int32_t* dcnt,
-                   int32_t* chk, int64_t* cnt_out, uint8_t* carry, int* scratch, int N, int T,
-                   int device, void* stream) {
+                   const int64_t* cnt_in, const int* tab, int32_t* st, int32_t* arng,
+                   int32_t* dcnt, int32_t* chk, int64_t* cnt_out, uint8_t* carry, int* scratch,
+                   int* word, int N, int T, int device, void* stream) {
   const void* kernel = nullptr;
   int blocks = 0, slots = 0;
   size_t bytes = 0;
   const int rc = rollout_shape<C, R>(N, device, &kernel, &blocks, &slots, &bytes);
   if (rc) return rc;
-  void* args[] = {(void*)&c,     (void*)&st_in,   (void*)&obs_in,   (void*)&own_in,
-                  (void*)&mask_in, (void*)&arng_in, (void*)&cnt_in, (void*)&st,
-                  (void*)&arng,  (void*)&dcnt,    (void*)&chk,      (void*)&cnt_out,
-                  (void*)&carry, (void*)&scratch, (void*)&N,        (void*)&T,
-                  (void*)&slots};
+  void* args[] = {(void*)&c,       (void*)&st_in,   (void*)&obs_in, (void*)&own_in,
+                  (void*)&mask_in, (void*)&arng_in, (void*)&cnt_in, (void*)&tab,
+                  (void*)&st,      (void*)&arng,    (void*)&dcnt,   (void*)&chk,
+                  (void*)&cnt_out, (void*)&carry,   (void*)&scratch, (void*)&word,
+                  (void*)&N,       (void*)&T,       (void*)&slots};
   const cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args,
                                                       bytes, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
@@ -1470,6 +1610,23 @@ int hk_step(const int* cfg, int cfg_ints, const int32_t* st_in, const int8_t* ob
   return (int)cudaGetLastError();
 }
 
+// Ints of the envelope word for a state of `rows` rows.
+int hk_envelope_ints(int rows) { return envelope_ints(rows); }
+
+// A zeroed envelope word for a state of `rows` rows in pinned host memory
+// mapped into the device's address space: *host for the host, *dev for the
+// kernel.  Held for the life of the process (ops/hanabi.py keeps one per
+// config and device).
+int hk_envelope_record(int rows, int device, void** host, void** dev) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = sizeof(int) * (size_t)envelope_ints(rows);
+  err = cudaHostAlloc(host, bytes, cudaHostAllocMapped | cudaHostAllocPortable);
+  if (err != cudaSuccess) return (int)err;
+  std::memset(*host, 0, bytes);
+  return (int)cudaHostGetDevicePointer(dev, *host, 0);
+}
+
 int hk_carry_bytes(const int* cfg, int cfg_ints) {
   Cfg c;
   if (!make_cfg(cfg, cfg_ints, &c)) return ERR_BAD_CONFIG;
@@ -1479,19 +1636,23 @@ int hk_carry_bytes(const int* cfg, int cfg_ints) {
   return ERR_BAD_CONFIG;
 }
 
+// K4.  tab: the envelope's [2, rows] table on the device; word: the device
+// address of the envelope word (hk_envelope_record), which a launch whose
+// entry state leaves the envelope fills (see the header).
 int hk_rollout(const int* cfg, int cfg_ints, const int32_t* st_in, const int8_t* obs_in,
                const int8_t* own_in, const bool* mask_in, const int32_t* arng_in,
-               const int64_t* cnt_in, int32_t* st, int32_t* arng, int32_t* dcnt,
-               int32_t* chk, int64_t* cnt_out, uint8_t* carry, int* scratch, int N, int T,
-               int device, void* stream) {
+               const int64_t* cnt_in, const int* tab, int32_t* st, int32_t* arng,
+               int32_t* dcnt, int32_t* chk, int64_t* cnt_out, uint8_t* carry, int* scratch,
+               int* word, int N, int T, int device, void* stream) {
   Cfg c;
   if (!make_cfg(cfg, cfg_ints, &c)) return ERR_BAD_CONFIG;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-#define HK_ROLLOUT(C, R)                                                                   \
-  if (rollout_config<C, R>(c))                                                             \
-    return launch_rollout<C, R>(c, st_in, obs_in, own_in, mask_in, arng_in, cnt_in, st, arng, \
-                                dcnt, chk, cnt_out, carry, scratch, N, T, device, stream);
+#define HK_ROLLOUT(C, R)                                                                      \
+  if (rollout_config<C, R>(c))                                                                \
+    return launch_rollout<C, R>(c, st_in, obs_in, own_in, mask_in, arng_in, cnt_in, tab, st,  \
+                                arng, dcnt, chk, cnt_out, carry, scratch, word, N, T, device, \
+                                stream);
   HK_ROLLOUT(5, 5)
   HK_ROLLOUT(2, 5)
   HK_ROLLOUT(1, 5)

@@ -18,9 +18,13 @@ step on the plain env), K11 for every config:
   checksum ``chk += P * reward + done + (sum of every seat's obs, own and
   mask bytes)`` after every step, a refreshed seat's sum in closed form
   (``seat_sums_plain``).  Instantiated for ``ROLLOUT_CONFIGS``; it carries
-  each env in a packed record of int8 fields, so its wrapper refuses a state
-  outside ``rollout_envelope`` (which holds every state the package's
-  functions produce) before launch, and waits for the state to read it;
+  each env in a packed record of int8 fields, so it checks its entry state
+  against ``rollout_envelope`` (which holds every state the package's
+  functions produce) on the card, with no host read: a launch whose state
+  lies outside steps nothing, marks its outputs refused (done counts
+  ``REFUSED_DCNT``, checksums ``REFUSED_CHK``) and fills the envelope word
+  in mapped host memory, on which the next launch on that device or
+  ``check_rollout_envelope`` raises ``ValueError``;
 * **K11** ``legal_moves``: every seat's legal-move mask from the hand cards,
   hand sizes and info tokens, for any game of JAX's ``Env`` (``_mask_cfg``:
   2 to 5 players each with a compile-time instantiation, any other count
@@ -61,7 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -86,6 +90,12 @@ CUR = SCAL_FIELDS.index("cur_player")
 # small and very_small
 ROLLOUT_CONFIGS = ("full", "small", "very_small")
 INFO = SCAL_FIELDS.index("info_tokens")
+# what a K4 launch refused for its entry state returns in every env
+# (csrc/hanabi.cu's REFUSED_DCNT, REFUSED_CHK): a done count no rollout
+# returns, and the checksum -2^31
+REFUSED_DCNT = -1
+REFUSED_CHK = -2**31
+ENVELOPE_ERROR = "state outside hk_rollout_kernel's envelope (rollout_envelope): "
 
 
 def reset_launches() -> None:
@@ -504,21 +514,45 @@ def rollout_envelope(env: Env):
     return lo, hi
 
 
-def envelope_violations(env: Env, st: torch.Tensor):
+def envelope_violations(env: Env, st: torch.Tensor) -> List[str]:
     """Rows of ``st`` ([ROWS, N] int32) with a value outside
-    ``rollout_envelope``: a list of ``"field[i]: min..max"`` strings."""
+    ``rollout_envelope``: a list of ``"field[i]: min..max"`` strings (K4's
+    check on the card in plain PyTorch; it reads the result on the host)."""
     lo, hi = (x.to(st.device) for x in rollout_envelope(env))
     mn, mx = torch.aminmax(st, dim=1)
     bad = torch.nonzero((mn.to(torch.int64) < lo) | (mx.to(torch.int64) > hi)).flatten().tolist()
-    if not bad:
-        return []
+    return violation_text(env, bad, mn.tolist(), mx.tolist())
+
+
+def violation_text(env: Env, rows, mn, mx) -> List[str]:
+    """``"field[i]: min..max"`` for each row index in ``rows`` of the state,
+    ``mn`` and ``mx`` every row's min and max (sequences of ints)."""
     names = [(name, r) for name, r in row_offsets(env).items() if name != "rows"]
     out = []
-    for row in bad:
+    for row in rows:
         name, first = max((r, name) for name, r in names if r <= row)[::-1]
         field = SCAL_FIELDS[row - first] if name == "scal" else f"{name}[{row - first}]"
         out.append(f"{field}: {int(mn[row])}..{int(mx[row])}")
     return out
+
+
+def envelope_word_ints(env: Env) -> int:
+    """Ints of K4's envelope word for ``env`` (``csrc/hanabi.cu``'s
+    ``envelope_ints``): the flag, the rows' bitmask, their mins, their
+    maxes."""
+    rows = row_offsets(env)["rows"]
+    return 1 + (rows + 31) // 32 + 2 * rows
+
+
+def word_violations(env: Env, word: torch.Tensor) -> List[str]:
+    """The ``envelope_violations`` text of a filled envelope word (int32
+    ``[envelope_word_ints(env)]`` on the host): the rows its bitmask marks,
+    with their min and max over the batch."""
+    rows = row_offsets(env)["rows"]
+    nb = (rows + 31) // 32
+    w = word.tolist()
+    bad = [r for r in range(rows) if (w[1 + r // 32] >> (r % 32)) & 1]
+    return violation_text(env, bad, w[1 + nb:1 + nb + rows], w[1 + nb + rows:])
 
 
 def legal_moves_plain(env: Env, hand_cards: torch.Tensor, hand_size: torch.Tensor,
@@ -541,8 +575,12 @@ def _lib() -> ctypes.CDLL:
         lib.hk_step_scratch_ints.restype = i
         lib.hk_step.argtypes = [p, i] + [p] * 15 + [i, i, p]
         lib.hk_step.restype = i
-        lib.hk_rollout.argtypes = [p, i] + [p] * 13 + [i, i, i, p]
+        lib.hk_rollout.argtypes = [p, i] + [p] * 15 + [i, i, i, p]
         lib.hk_rollout.restype = i
+        lib.hk_envelope_ints.argtypes = [i]
+        lib.hk_envelope_ints.restype = i
+        lib.hk_envelope_record.argtypes = [i, i, ctypes.POINTER(p), ctypes.POINTER(p)]
+        lib.hk_envelope_record.restype = i
         lib.hk_carry_bytes.argtypes = [p, i]
         lib.hk_rollout_onchip.argtypes = [p, i, i, i, p]
         lib.hk_rollout_onchip.restype = i
@@ -591,17 +629,106 @@ def _config_key(env: Env) -> tuple:
     return (env.colors, env.ranks, env.max_info, env.max_life, env.players)
 
 
-# the section table on each device, per config
+# the kernels' tables on each device, per table and config
 _DEVICE_TABLES: Dict[tuple, Dict[torch.device, torch.Tensor]] = {}
+
+
+def _cached_table(name: str, env: Env, dev: torch.device, build) -> torch.Tensor:
+    per_dev = _DEVICE_TABLES.setdefault((name, _config_key(env)), {})
+    t = per_dev.get(dev)
+    if t is None:
+        t = per_dev[dev] = build().to(dev)
+    return t
 
 
 def _device_table(env: Env, dev: torch.device) -> torch.Tensor:
     """``encode_table(env)`` on ``dev``, which K3 reads; copied once."""
-    per_dev = _DEVICE_TABLES.setdefault(_config_key(env), {})
-    t = per_dev.get(dev)
-    if t is None:
-        t = per_dev[dev] = encode_table(env).to(dev)
-    return t
+    return _cached_table("encode", env, dev, lambda: encode_table(env))
+
+
+def envelope_table(env: Env, dev: DeviceLike = None) -> torch.Tensor:
+    """``rollout_envelope(env)`` as K4 reads it: int32 ``[2 * ROWS]``, every
+    row's lo, then every row's hi (a row with no bound holds the int32
+    range); copied to ``dev`` once."""
+    return _cached_table("envelope", env, _indexed(dev),
+                         lambda: torch.cat(rollout_envelope(env)).to(torch.int32))
+
+
+def _indexed(device: DeviceLike) -> torch.device:
+    """``resolve_device(device)`` with a card's index (``"cuda"`` is the
+    current card), as a tensor's ``.device`` names it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclasses.dataclass
+class EnvelopeWord:
+    """K4's envelope word for one config on one device: ``words`` (int32
+    ``[envelope_word_ints(env)]``) on the host, in pinned memory that the
+    card writes through ``device_ptr`` (never freed: a word lives as long
+    as the process); a refused launch sets ``words[0]`` to 1 after the
+    rest.  ``flag`` reads that first int without a CUDA call."""
+    env: Env
+    words: torch.Tensor
+    device_ptr: int
+
+    def __post_init__(self):
+        self.flag = ctypes.c_int32.from_address(self.words.data_ptr())
+
+
+# the envelope words, per (config, device); written by the card, read and
+# cleared by _raise_refused
+_ENVELOPE_WORDS: Dict[Tuple[tuple, torch.device], EnvelopeWord] = {}
+
+
+def _envelope_word(env: Env, dev: torch.device) -> EnvelopeWord:
+    key = (_config_key(env), dev)
+    rec = _ENVELOPE_WORDS.get(key)
+    if rec is None:
+        lib, rows = _lib(), row_offsets(env)["rows"]
+        n = lib.hk_envelope_ints(rows)
+        if n != envelope_word_ints(env):
+            raise RuntimeError(f"hk_envelope_ints({rows}) is {n}, envelope_word_ints "
+                               f"{envelope_word_ints(env)}")
+        host, device_ptr = ctypes.c_void_p(), ctypes.c_void_p()
+        _raise_on(lib.hk_envelope_record(rows, dev.index or 0, ctypes.byref(host),
+                                         ctypes.byref(device_ptr)), "hk_envelope_record")
+        words = torch.frombuffer((ctypes.c_int32 * n).from_address(host.value),
+                                 dtype=torch.int32)
+        rec = _ENVELOPE_WORDS[key] = EnvelopeWord(env, words, device_ptr.value)
+    return rec
+
+
+def _raise_refused(dev: torch.device, wait: bool) -> None:
+    """Raise ``ValueError`` (``ENVELOPE_ERROR`` and ``envelope_violations``'
+    text) for every filled envelope word of ``dev``, and clear them.  With
+    ``wait`` the device is synchronised first, so every launch so far has
+    written its word; without, the words are read as they stand (no CUDA
+    call) and the device is synchronised only once one is filled."""
+    words = [w for (_, d), w in _ENVELOPE_WORDS.items() if d == dev]
+    if not words or (not wait and not any(w.flag.value for w in words)):
+        return
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    filled = [w for w in words if w.flag.value]
+    if not filled:
+        return
+    text = [t for w in filled for t in word_violations(w.env, w.words)]
+    for w in filled:
+        w.words.zero_()
+    raise ValueError(ENVELOPE_ERROR + "; ".join(text))
+
+
+def check_rollout_envelope(device: DeviceLike = None) -> None:
+    """Raise ``ValueError`` if a K4 launch on ``device`` was refused for its
+    entry state (outside ``rollout_envelope``) since the last report: the
+    message names each row outside and its min and max over the batch, as
+    ``envelope_violations`` does.  Waits for the device first; returns
+    quietly where no launch was refused (and on the CPU, where
+    ``fused_rollout`` runs its plain version)."""
+    _raise_refused(_indexed(device), wait=True)
 
 
 def _check_state(env: Env, ts: TState, counter: torch.Tensor) -> int:
@@ -659,10 +786,10 @@ def _fused_rollout_cuda(env: Env, ts: TState, counter: torch.Tensor, act_rng: to
     if record < 0:
         raise ValueError(f"hk_rollout_kernel has no instantiation for this config "
                          f"({env.colors} colors, {env.ranks} ranks): it runs {ROLLOUT_CONFIGS}")
-    bad = envelope_violations(env, ts.st)
-    if bad:
-        raise ValueError("state outside hk_rollout_kernel's envelope (rollout_envelope): "
-                         + "; ".join(bad))
+    # an earlier launch refused on this device raises here, if its word is
+    # written by now; this launch's check runs on the card
+    _raise_refused(dev, wait=False)
+    word = _envelope_word(env, dev)
     st, arng = torch.empty_like(ts.st), torch.empty_like(act_rng)
     dcnt = torch.empty(N, dtype=torch.int32, device=dev)
     chk = torch.empty(N, dtype=torch.int32, device=dev)
@@ -671,9 +798,10 @@ def _fused_rollout_cuda(env: Env, ts: TState, counter: torch.Tensor, act_rng: to
     scratch = torch.empty(lib.hk_scratch_ints(N), dtype=torch.int32, device=dev)
     rc = lib.hk_rollout(
         *cfg, ts.st.data_ptr(), ts.obs.data_ptr(), ts.own.data_ptr(), ts.mask.data_ptr(),
-        act_rng.data_ptr(), counter.data_ptr(), st.data_ptr(), arng.data_ptr(),
-        dcnt.data_ptr(), chk.data_ptr(), cnt.data_ptr(), carry.data_ptr(),
-        scratch.data_ptr(), N, int(num_steps), dev.index or 0, _stream(dev))
+        act_rng.data_ptr(), counter.data_ptr(), envelope_table(env, dev).data_ptr(),
+        st.data_ptr(), arng.data_ptr(), dcnt.data_ptr(), chk.data_ptr(), cnt.data_ptr(),
+        carry.data_ptr(), scratch.data_ptr(), word.device_ptr, N, int(num_steps),
+        dev.index or 0, _stream(dev))
     _raise_on(rc, "hk_rollout_kernel")
     LAUNCHES["fused_rollout"] += 1
     return TState(st=st, obs=ts.obs, own=ts.own, mask=ts.mask), arng, cnt, dcnt, chk
@@ -738,7 +866,16 @@ def fused_rollout(env: Env, ts: TState, counter: torch.Tensor, act_rng: torch.Te
     int32, checksum [N] int32)``; the returned obs / own / mask are the
     launch-time tensors.
 
-    K4 on CUDA tensors; the plain version on CPU tensors."""
+    K4 on CUDA tensors; the plain version on CPU tensors.  On the card the
+    call returns without waiting for the device: K4 checks the state
+    against ``rollout_envelope`` itself.  A launch whose state lies outside
+    steps nothing and returns the state, action words and counter as given,
+    every done count ``REFUSED_DCNT`` (-1) and every checksum
+    ``REFUSED_CHK`` (-2^31); its rows and their ranges reach the host in the
+    envelope word, on which the next ``fused_rollout`` on that device (once
+    the refused launch has run) or ``check_rollout_envelope`` raises
+    ``ValueError`` with ``envelope_violations``' text.  A refused state
+    passed on is refused again."""
     if num_steps < 1:
         raise ValueError("num_steps must be >= 1")
     if ts.st.is_cuda:

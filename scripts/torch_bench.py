@@ -22,7 +22,9 @@ route, each consuming its outputs as ``bench.py``'s route of that name does:
 * ``env`` (``bench.py``'s ``jnp`` route): the plain env through ``core.batch.Simulator``.
 
 A kernel route refuses an env outside its kernel's envelope with
-``SystemExit``; nothing changes route on its own.  On the card the kernels
+``SystemExit``; nothing changes route on its own.  K4 checks its entry
+state on the card; the Hanabi rollout route calls ``check_rollout_envelope``
+after each run's checksum read, outside the timed span.  On the card the kernels
 run; with ``--device cpu`` their plain versions do.
 """
 
@@ -245,8 +247,13 @@ def bench(argv=None):
     env = make_env(args.env, args.layout, args.num_players)
     carry, run = build_rollout(env, args.env, args.num_envs, args.num_steps, args.backend,
                                device=args.device)
+    # K4 checks its entry state on the card; a refused launch raises here,
+    # after the checksum's read has synced
+    check = (hk.check_rollout_envelope if args.env == "hanabi" and args.backend == "rollout"
+             else lambda device: None)
     carry, s = run(carry)  # warm-up
     float(s)
+    check(args.device)
     # each repeat ends on a device -> host read of its checksum
     times = []
     for _ in range(args.repeats):
@@ -254,6 +261,7 @@ def bench(argv=None):
         carry, s = run(carry)
         float(s)
         times.append(time.perf_counter() - t0)
+        check(args.device)
     dt = sorted(times)[len(times) // 2]
     sps = args.num_steps * args.num_envs / dt
     line = {"metric": metric_name(args.env, args.layout), "value": round(sps, 1),
