@@ -224,7 +224,7 @@ class DeviceVecEnv(VectorMultiAgentEnv):
         self._collect = make_fused_collect(env, num_envs, self.device, mesh=sharding)
         self._step_graph = None
         if captures(self.device, self._collect):
-            self._step_graph = LoopGraph(self._step_body, owner=self)
+            self._step_graph = LoopGraph(self._step_body, owner=self, name="step")
         self.observation_space, self.share_observation_space, self.action_space = _spaces(env)
         self._reset_batch()
 

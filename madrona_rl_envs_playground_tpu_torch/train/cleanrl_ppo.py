@@ -260,11 +260,11 @@ class CleanPPOAgent(VectorAgent):
         self._record_graph = self._sample_graph = self._update_graph = self._train_graph = None
         if captures(self.device):
             self._record_graph = LoopGraph(functools.partial(self._act, record=True),
-                                           [self.sample_gen], owner=self)
+                                           [self.sample_gen], owner=self, name="act_record")
             self._sample_graph = LoopGraph(functools.partial(self._act, record=False),
-                                           [self.sample_gen], owner=self)
-            self._update_graph = LoopGraph(self._update_impl, owner=self)
-            self._train_graph = LoopGraph(self._train_impl, owner=self)
+                                           [self.sample_gen], owner=self, name="act_sample")
+            self._update_graph = LoopGraph(self._update_impl, owner=self, name="credit")
+            self._train_graph = LoopGraph(self._train_impl, owner=self, name="train")
 
         self.global_step = 0
         self._step = 0

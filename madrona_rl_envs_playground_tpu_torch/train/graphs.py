@@ -48,6 +48,15 @@ them again.
 A replay returns the graph's static outputs, which the next replay of the
 same graph overwrites: a caller that keeps a result across calls clones it
 (the agent and the vector env clone what they hand their callers).
+
+Each graph has a ``name`` (``rollout``, ``scan``, ``epochs``, ``collect``,
+``returns``, ``train``, ...), under which ``utils/tracing.py`` counts its
+captures, replays and the bytes copied into its static inputs.  Inside a
+trainer's update span a call is also timed: ``graph.capture:<name>`` (the
+first call: collection, warm-up and capture, on the host's clock),
+``graph.inputs:<name>`` (the copy into the static inputs) and
+``graph.replay:<name>``, both on the device's clock too.  Other callers'
+replays (the agent's, the vector env's, MAPPO's eval) only count.
 """
 
 from __future__ import annotations
@@ -55,11 +64,12 @@ from __future__ import annotations
 import dataclasses
 import gc
 import weakref
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops import acrobot, balance, cartpole, hanabi, overcooked
+from ..utils import tracing
 
 # the modules whose wrappers count their launches in LAUNCHES
 LAUNCH_MODULES = (overcooked, cartpole, balance, acrobot, hanabi)
@@ -120,28 +130,48 @@ class LoopGraph:
     graph).  ``fn`` returns a tree of tensors.  ``owner`` is the object
     whose graphs these are (a trainer, an agent, an env): the dropped
     graphs are collected before the first capture of each owner's graphs
-    only, and before every capture of a graph without one."""
+    only, and before every capture of a graph without one.  ``name``
+    (default ``fn``'s) names the graph's spans and counters."""
 
-    def __init__(self, fn: Callable, generators: Sequence[torch.Generator] = (), owner=None):
+    def __init__(self, fn: Callable, generators: Sequence[torch.Generator] = (), owner=None,
+                 name: Optional[str] = None):
         self.fn = fn
         self.generators = tuple(generators)
         self.owner = owner
+        self.name = name or getattr(fn, "__name__", "loop")
         self.stream = None  # the side stream of the warm-up and the capture
         self.graph = None
         self.launches: Dict[Tuple[str, str], int] = {}  # a replay's wrapper calls
+        self.input_bytes = 0  # what a replay copies into the static inputs
         self._inputs = self._outputs = None
+        self._device = None  # the static inputs' device, whose clock the spans read
 
     def __call__(self, *args):
         if self.graph is None:
-            self._collect()
-            out = self._warm_up(args)
-            self._capture(args)
+            with tracing.span("graph.capture:" + self.name):
+                self._collect()
+                out = self._warm_up(args)
+                self._capture(args)
+            leaves = tree_leaves(self._inputs)
+            self.input_bytes = sum(t.nbytes for t in leaves)
+            self._device = leaves[0].device if leaves else None
+            tracing.graph_captured(self.name)
             return out
+        if tracing.in_update():
+            with tracing.span("graph.inputs:" + self.name, self._device) as copied:
+                self._copy_inputs(args)
+            with tracing.span("graph.replay:" + self.name, self._device, after=copied):
+                self.graph.replay()
+        else:
+            self._copy_inputs(args)
+            self.graph.replay()
+        add_launches(self.launches)
+        tracing.graph_replayed(self.name, self.input_bytes)
+        return self._outputs
+
+    def _copy_inputs(self, args) -> None:
         for dst, src in zip(tree_leaves(self._inputs), tree_leaves(args), strict=True):
             dst.copy_(src)
-        self.graph.replay()
-        add_launches(self.launches)
-        return self._outputs
 
     def _collect(self) -> None:
         """An owner and its graphs form a reference cycle, so a dropped

@@ -74,6 +74,7 @@ from ...device import DeviceLike, resolve_device
 from ...models.common import dist_sample
 from ...parallel.launch import is_primary
 from ...parallel.mesh import shard_batch_pytree
+from ...utils import tracing
 from ...utils.checkpoint import load_pytree, save_pytree
 from ...utils.logger import ScalarLogger
 from ..fused_collect import make_fused_collect
@@ -89,60 +90,62 @@ from .valuenorm import ValueNormState, vn_copy_
 class MAPPORunner:
     def __init__(self, cfg: MAPPOConfig, env, run_dir: Optional[str] = None,
                  device: DeviceLike = None, mesh=None):
-        self.device = dev = resolve_device(device) if mesh is None else mesh.device
-        self.cfg = cfg
-        self.env = env
-        self.mesh = mesh
-        self.N = cfg.n_rollout_threads
-        self.A = env.num_agents
-        # this rank's envs of the whole batch
-        self._rows = slice(0, self.N) if mesh is None else mesh.rows(self.N)
-        self.n_local = self._rows.stop - self._rows.start
-        obs_shape, share_obs_shape = (env.obs_size,), (env.state_size,)
-        if cfg.use_cnn_obs:
-            # grid envs only: the flat obs is (x, y, c)-ordered, so the
-            # [W, H, C] reshape inside the nets recovers the grid the
-            # reference's CNN sees (utils/cnn.py)
-            if not hasattr(env, "width"):
-                raise ValueError(f"use_cnn_obs needs a grid env (width, height, "
-                                 f"num_channels); {type(env).__name__} has flat obs only")
-            obs_shape = (env.width, env.height, env.num_channels)
-            if env.state_size == env.obs_size:
-                share_obs_shape = obs_shape
-        self.policy = MAPPOPolicy(cfg, obs_shape=obs_shape, share_obs_shape=share_obs_shape,
-                                  num_actions=env.num_actions, seed=cfg.seed, device=dev)
-        self._fused = make_fused_collect(env, self.N, dev, mesh=mesh)
-        # on a mesh the epochs all-reduce over gloo: eager
-        self.trainer = RMAPPOTrainer(cfg, self.policy, mesh=mesh,
-                                     captured=captures(dev, self._fused) and mesh is None)
-        self.run_dir = run_dir
-        self.logger = ScalarLogger(run_dir) if run_dir and is_primary() else None
-        self.sample_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-        self.bstate, self.out = batched_reset(env, self.N, device=dev)
-        if mesh is not None:
-            mesh.broadcast_module_(self.policy.actor)
-            mesh.broadcast_module_(self.policy.critic)
-            self.bstate, self.out = shard_batch_pytree((self.bstate, self.out), mesh)
-        B = self.n_local * self.A
-        # 0 where the env's last step ended an episode (the buffer's slot T)
-        self._masks = torch.ones((B,), device=dev)
-        # the hidden states (JAX keeps width-1 placeholders where the policy
-        # is feed-forward, and so does the port)
-        self._rnn = self.policy.actor.zero_states(B, dev)
-        self._rnnc = self.policy.critic.zero_states(B, dev)
-        self._rnn_shape = tuple(self._rnn.shape)
-        # evaluate runs over the whole batch: on a mesh, on rank 0 through
-        # a collector of its own; its sampler's seed is reset at every call
-        self._eval_fused = self._fused if mesh is None else make_fused_collect(env, self.N, dev)
-        self._eval_gen = torch.Generator(device=dev)
-        self._collect_graph = self._returns_graph = None
-        self._eval_graphs = {}  # deterministic -> the eval block's graph
-        if captures(dev, self._fused):
-            self._collect_graph = LoopGraph(self._collect_body, [self.sample_gen], owner=self)
-            self._returns_graph = LoopGraph(functools.partial(
-                returns_scan, gamma=cfg.gamma, gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
-                use_proper_time_limits=cfg.use_proper_time_limits), owner=self)
-        self.episode_rewards = []  # average episode score of each update
+        with tracing.span("construct"):  # on the host's clock
+            self.device = dev = resolve_device(device) if mesh is None else mesh.device
+            self.cfg = cfg
+            self.env = env
+            self.mesh = mesh
+            self.N = cfg.n_rollout_threads
+            self.A = env.num_agents
+            # this rank's envs of the whole batch
+            self._rows = slice(0, self.N) if mesh is None else mesh.rows(self.N)
+            self.n_local = self._rows.stop - self._rows.start
+            obs_shape, share_obs_shape = (env.obs_size,), (env.state_size,)
+            if cfg.use_cnn_obs:
+                # grid envs only: the flat obs is (x, y, c)-ordered, so the
+                # [W, H, C] reshape inside the nets recovers the grid the
+                # reference's CNN sees (utils/cnn.py)
+                if not hasattr(env, "width"):
+                    raise ValueError(f"use_cnn_obs needs a grid env (width, height, "
+                                     f"num_channels); {type(env).__name__} has flat obs only")
+                obs_shape = (env.width, env.height, env.num_channels)
+                if env.state_size == env.obs_size:
+                    share_obs_shape = obs_shape
+            self.policy = MAPPOPolicy(cfg, obs_shape=obs_shape, share_obs_shape=share_obs_shape,
+                                      num_actions=env.num_actions, seed=cfg.seed, device=dev)
+            self._fused = make_fused_collect(env, self.N, dev, mesh=mesh)
+            # on a mesh the epochs all-reduce over gloo: eager
+            self.trainer = RMAPPOTrainer(cfg, self.policy, mesh=mesh,
+                                         captured=captures(dev, self._fused) and mesh is None)
+            self.run_dir = run_dir
+            self.logger = ScalarLogger(run_dir) if run_dir and is_primary() else None
+            self.sample_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+            self.bstate, self.out = batched_reset(env, self.N, device=dev)
+            if mesh is not None:
+                mesh.broadcast_module_(self.policy.actor)
+                mesh.broadcast_module_(self.policy.critic)
+                self.bstate, self.out = shard_batch_pytree((self.bstate, self.out), mesh)
+            B = self.n_local * self.A
+            # 0 where the env's last step ended an episode (the buffer's slot T)
+            self._masks = torch.ones((B,), device=dev)
+            # the hidden states (JAX keeps width-1 placeholders where the policy
+            # is feed-forward, and so does the port)
+            self._rnn = self.policy.actor.zero_states(B, dev)
+            self._rnnc = self.policy.critic.zero_states(B, dev)
+            self._rnn_shape = tuple(self._rnn.shape)
+            # evaluate runs over the whole batch: on a mesh, on rank 0 through
+            # a collector of its own; its sampler's seed is reset at every call
+            self._eval_fused = self._fused if mesh is None else make_fused_collect(env, self.N, dev)
+            self._eval_gen = torch.Generator(device=dev)
+            self._collect_graph = self._returns_graph = None
+            self._eval_graphs = {}  # deterministic -> the eval block's graph
+            if captures(dev, self._fused):
+                self._collect_graph = LoopGraph(self._collect_body, [self.sample_gen], owner=self,
+                                                name="collect")
+                self._returns_graph = LoopGraph(functools.partial(
+                    returns_scan, gamma=cfg.gamma, gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
+                    use_proper_time_limits=cfg.use_proper_time_limits), owner=self, name="returns")
+            self.episode_rewards = []  # average episode score of each update
 
     @property
     def captured(self) -> bool:
@@ -261,14 +264,23 @@ class MAPPORunner:
         where given, replace the sampled actions (``_collect``) and the
         minibatch permutations (``trainer.train``), so that tests drive both
         packages alike.  Returns (train info, the average episode score: seat
-        0's reward summed over the rollout, per env of the whole batch)."""
-        lrs = self.policy.lr_for(episode, episodes)
-        tr = self._collect(actions)
-        buf = self._tr_to_buffer(tr, self._masks, self.out.active.float())
-        buf = self._compute(buf)
-        info = self.trainer.train(buf, lrs, perms)
-        seat0 = tr["rewards"].reshape(-1, self.n_local, self.A)[:, :, 0].sum()
-        ep_rew = float(all_sum(self.mesh, seat0, "metrics")) / self.N
+        0's reward summed over the rollout, per env of the whole batch).
+        Traced as an ``update`` span (``utils/tracing.py``) tiled by
+        ``collect``, ``buffer``, ``compute``, ``train`` and ``score_read``."""
+        dev = self.device
+        with tracing.span("update", dev, update=True, tiled=True):
+            lrs = self.policy.lr_for(episode, episodes)
+            with tracing.span("collect", dev):
+                tr = self._collect(actions)
+            with tracing.span("buffer", dev):
+                buf = self._tr_to_buffer(tr, self._masks, self.out.active.float())
+            with tracing.span("compute", dev):
+                buf = self._compute(buf)
+            with tracing.span("train", dev):
+                info = self.trainer.train(buf, lrs, perms)
+            with tracing.span("score_read", dev):
+                seat0 = tr["rewards"].reshape(-1, self.n_local, self.A)[:, :, 0].sum()
+                ep_rew = float(all_sum(self.mesh, seat0, "metrics")) / self.N
         return info, ep_rew
 
     # ------------------------------------------------------------------
@@ -368,7 +380,8 @@ class MAPPORunner:
         block = functools.partial(self._eval_body, deterministic=deterministic)
         if captures(dev, collect):
             if deterministic not in self._eval_graphs:
-                self._eval_graphs[deterministic] = LoopGraph(block, [self._eval_gen])
+                self._eval_graphs[deterministic] = LoopGraph(
+                    block, [self._eval_gen], name="eval" if deterministic else "eval_sampled")
             block = self._eval_graphs[deterministic]
         carry = (collect.pack(bstate), out, self.policy.actor.zero_states(B, dev),
                  torch.ones((B,), device=dev), torch.zeros((), dtype=torch.float64, device=dev))

@@ -87,7 +87,8 @@ class RMAPPOTrainer:
         # the statistics live as long as the trainer: updated in place
         self.vn: ValueNormState = init_valuenorm(policy.device)
         self.generator = torch.Generator(device=policy.device).manual_seed(cfg.seed)
-        self._train_graph = (LoopGraph(self._train_body, [self.generator], owner=self)
+        self._train_graph = (LoopGraph(self._train_body, [self.generator], owner=self,
+                                       name="train")
                              if captured else None)
 
     @property

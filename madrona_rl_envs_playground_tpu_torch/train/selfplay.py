@@ -78,6 +78,7 @@ from ..models.cleanrl import CleanRLNetwork
 from ..models.common import dist_entropy, dist_log_prob, dist_sample
 from ..parallel.launch import is_primary
 from ..parallel.mesh import gather_batch_pytree, put_selfplay_state, shard_batch_pytree
+from ..utils import tracing
 from ..utils.checkpoint import load_pytree, save_pytree
 from .cleanrl_ppo import Rollout, active_masked_gae, plain_gae
 from .fused_collect import make_fused_collect
@@ -151,42 +152,44 @@ class SelfPlayPPO:
 
     def __init__(self, env, num_envs: int, cfg: SelfPlayConfig = SelfPlayConfig(),
                  seed: int = 0, device: DeviceLike = None, mesh=None):
-        self.device = resolve_device(device) if mesh is None else mesh.device
-        if cfg.value_loss not in ("clipped_mse", "smooth_l1"):
-            raise ValueError(f"unknown value_loss {cfg.value_loss!r}")
-        self.env = env
-        self.num_envs = num_envs
-        self.mesh = mesh
-        # this rank's worlds of the global batch
-        self._rows = slice(0, num_envs) if mesh is None else mesh.rows(num_envs)
-        self.cfg = cfg
-        # envs whose state_obs is the obs store one trajectory buffer, and
-        # envs that never mask store no mask or active flags
-        self._alias = env.state_is_obs
-        self._masked = env.masked
-        init_gen = torch.Generator().manual_seed(seed)
-        self.net = CleanRLNetwork(
-            env.obs_size, env.num_actions, cfg.hidden, cfg.num_layers,
-            use_bf16=cfg.use_bf16, state_size=env.state_size,
-            generator=init_gen).to(self.device)
-        self.opt = adam(self.net.parameters(), cfg.lr, eps=1e-5)
-        self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
-        # envs with a step kernel (Overcooked layouts inside its envelope,
-        # Cartpole, Balance Beam, Acrobot, 2-player Hanabi) step through it;
-        # the rest (e.g. many_player_layout-scale grids, 3-player Hanabi)
-        # get the plain collector
-        self._fused = make_fused_collect(env, num_envs, self.device, mesh=mesh)
-        self._rollout_graph = self._scan_graph = self._update_graph = None
-        if captures(self.device, self._fused):
-            self._rollout_graph = LoopGraph(self._rollout_body, [self.sample_gen], owner=self)
-            self._scan_graph = LoopGraph(self._scan_body, owner=self)
-            if mesh is None:  # on a mesh the epochs all-reduce over gloo
-                self._update_graph = LoopGraph(self._update_body, owner=self)
-        bstate, out = batched_reset(env, num_envs, device=self.device)
-        self.state = {"bstate": bstate, "out": out}
-        if mesh is not None:
-            self.state = put_selfplay_state(self.state, mesh)
-            mesh.broadcast_module_(self.net)
+        with tracing.span("construct"):  # on the host's clock
+            self.device = resolve_device(device) if mesh is None else mesh.device
+            if cfg.value_loss not in ("clipped_mse", "smooth_l1"):
+                raise ValueError(f"unknown value_loss {cfg.value_loss!r}")
+            self.env = env
+            self.num_envs = num_envs
+            self.mesh = mesh
+            # this rank's worlds of the global batch
+            self._rows = slice(0, num_envs) if mesh is None else mesh.rows(num_envs)
+            self.cfg = cfg
+            # envs whose state_obs is the obs store one trajectory buffer, and
+            # envs that never mask store no mask or active flags
+            self._alias = env.state_is_obs
+            self._masked = env.masked
+            init_gen = torch.Generator().manual_seed(seed)
+            self.net = CleanRLNetwork(
+                env.obs_size, env.num_actions, cfg.hidden, cfg.num_layers,
+                use_bf16=cfg.use_bf16, state_size=env.state_size,
+                generator=init_gen).to(self.device)
+            self.opt = adam(self.net.parameters(), cfg.lr, eps=1e-5)
+            self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
+            # envs with a step kernel (Overcooked layouts inside its envelope,
+            # Cartpole, Balance Beam, Acrobot, 2-player Hanabi) step through it;
+            # the rest (e.g. many_player_layout-scale grids, 3-player Hanabi)
+            # get the plain collector
+            self._fused = make_fused_collect(env, num_envs, self.device, mesh=mesh)
+            self._rollout_graph = self._scan_graph = self._update_graph = None
+            if captures(self.device, self._fused):
+                self._rollout_graph = LoopGraph(self._rollout_body, [self.sample_gen], owner=self,
+                                                name="rollout")
+                self._scan_graph = LoopGraph(self._scan_body, owner=self, name="scan")
+                if mesh is None:  # on a mesh the epochs all-reduce over gloo
+                    self._update_graph = LoopGraph(self._update_body, owner=self, name="epochs")
+            bstate, out = batched_reset(env, num_envs, device=self.device)
+            self.state = {"bstate": bstate, "out": out}
+            if mesh is not None:
+                self.state = put_selfplay_state(self.state, mesh)
+                mesh.broadcast_module_(self.net)
 
     @property
     def _update_mesh(self):
@@ -417,16 +420,25 @@ class SelfPlayPPO:
 
     def train_step(self, actions: Optional[torch.Tensor] = None):
         """rollout -> advantage -> update; returns the metrics (on a mesh,
-        the means over the whole batch, on every rank)."""
-        bstate, out, tr = self._rollout(actions)
-        chunks, stats = self._advantage(tr, out)
-        losses = torch.stack(self._update(chunks))
-        stats = torch.stack([stats["mean_step_reward"], stats["mean_value"]])
-        if self._update_mesh is None:  # the losses are the whole batch's already
-            metrics = torch.cat([losses, all_sum(self.mesh, stats, "metrics")])
-        else:
-            metrics = all_sum(self.mesh, torch.cat([losses, stats]), "metrics")
-        pg, vl, ent, kl, msr, mv = metrics
+        the means over the whole batch, on every rank).  Traced as an
+        ``update`` span (``utils/tracing.py``) tiled by ``rollout``,
+        ``advantage``, ``epochs`` and ``metrics``."""
+        dev = self.device
+        with tracing.span("update", dev, update=True, tiled=True):
+            with tracing.span("rollout", dev):
+                bstate, out, tr = self._rollout(actions)
+            with tracing.span("advantage", dev):
+                chunks, stats = self._advantage(tr, out)
+            with tracing.span("epochs", dev):
+                losses = self._update(chunks)
+            with tracing.span("metrics", dev):
+                losses = torch.stack(losses)
+                stats = torch.stack([stats["mean_step_reward"], stats["mean_value"]])
+                if self._update_mesh is None:  # the losses are the whole batch's already
+                    metrics = torch.cat([losses, all_sum(self.mesh, stats, "metrics")])
+                else:
+                    metrics = all_sum(self.mesh, torch.cat([losses, stats]), "metrics")
+                pg, vl, ent, kl, msr, mv = metrics
         self.state = {"bstate": bstate, "out": out}
         return {"pg_loss": pg, "v_loss": vl, "entropy": ent, "approx_kl": kl,
                 "mean_step_reward": msr, "mean_value": mv}

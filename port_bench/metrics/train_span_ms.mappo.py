@@ -1,0 +1,14 @@
+"""The MAPPO trainer's epochs (``update``'s ``train`` span: the learning
+rates set, the train graph's input copy and replay), ms an update on the
+device's clock: the program's own span (``utils/tracing.py``), median over
+the process's replayed updates."""
+
+from port_bench.metrics_tracing import phase_ms, snapshot
+
+
+def value(snap):
+    return phase_ms(snap, "train")
+
+
+def read(trace):
+    return value(snapshot())
