@@ -404,9 +404,16 @@ class SelfPlayPPO:
         unless the update ran on the whole batch).  On a captured trainer
         without a mesh, a replay of the epochs' graph, whose losses the
         next replay overwrites.  Counts the tower inputs that the epochs
-        widen (``widened:epochs``), replayed or not."""
+        widen (``widened:epochs``), the rows their towers compute
+        (``rows:epochs``) and, for masked envs, the rows the losses weigh
+        (``active_rows:epochs``, on the device), replayed or not."""
         dt = self.net.compute_dtype
+        epochs = self.cfg.update_epochs
         tracing.widened("epochs", sum(chunks[k].dtype != dt for k in TOWER_INPUTS if k in chunks))
+        obs = chunks["obs"]
+        tracing.rows("epochs", obs.numel() // obs.shape[-1] * epochs)
+        if "active" in chunks:
+            tracing.active_rows("epochs", chunks["active"], epochs)
         update = self._update_graph if self._update_graph is not None else self._update_body
         return update(chunks)
 

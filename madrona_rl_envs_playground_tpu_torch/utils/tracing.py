@@ -46,7 +46,14 @@ are kept; besides, a running count, sum, minimum and maximum by span name
 self-play update's epochs widen to the towers' compute dtype (added by
 ``SelfPlayPPO._update`` on every call, eager or replayed: 1 where the critic
 reads the obs, 2 where it reads its own state obs, 0 where the chunks hold
-the compute dtype already; no metric reads it).  The kernels' launch counts
+the compute dtype already; no metric reads it); ``rows:epochs``, the rows
+the epochs' towers compute (the chunks' rows times ``update_epochs``, added
+by ``SelfPlayPPO._update`` on every call); and ``active_rows:epochs``, the
+rows of them that the losses weigh (the trainable active slots times
+``update_epochs``; added only by envs whose seats take turns).  The active
+count is a device scalar: its running sum stays on the card (one add an
+update, outside the graphs) and ``snapshot()`` reads it after its one
+synchronisation, so its ``min`` and ``max`` are None.  The kernels' launch counts
 stay where they are counted (``ops/*.py`` ``LAUNCHES``); ``snapshot()``
 reads them through ``train/graphs.py``.
 
@@ -90,6 +97,35 @@ class Stats:
         if not self.count:
             return None
         return {"count": self.count, "sum": self.sum, "min": self.min, "max": self.max}
+
+
+class DeviceSum:
+    """A running count and sum whose sum stays on the device of the amounts
+    added (one float64 total a device): adding is one device add, with no
+    host read; ``as_dict`` reads the totals (after the caller's
+    synchronisation) and has no minimum or maximum."""
+
+    __slots__ = ("count", "totals")
+
+    def __init__(self):
+        self.count, self.totals = 0, {}
+
+    def add(self, amount: torch.Tensor, times: int) -> None:
+        self.count += 1
+        total = self.totals.get(amount.device)
+        if total is None:
+            total = self.totals[amount.device] = torch.zeros((), dtype=torch.float64,
+                                                             device=amount.device)
+        total.add_(amount, alpha=times)
+
+    def on_cuda(self) -> bool:
+        return any(d.type == "cuda" for d in self.totals)
+
+    def as_dict(self) -> Optional[Dict[str, float]]:
+        if not self.count:
+            return None
+        return {"count": self.count, "sum": sum(float(t) for t in self.totals.values()),
+                "min": None, "max": None}
 
 
 class _Record:
@@ -195,6 +231,7 @@ class Tracer:
             self._others = collections.deque(maxlen=OTHERS_KEPT)
             self._span_stats: Dict[str, Dict[str, Stats]] = {}
             self._counters: Dict[str, Stats] = {}
+            self._device_counters: Dict[str, DeviceSum] = {}
 
     # ---- spans ----------------------------------------------------------
     def span(self, name: str, device=None, update: bool = False, tiled: bool = False,
@@ -451,6 +488,22 @@ class Tracer:
             with self._lock:
                 self._count("widened:" + name, n)
 
+    def rows(self, name: str, n: int) -> None:
+        """The pass ``name`` computed ``n`` rows in its towers."""
+        if self.enabled:
+            with self._lock:
+                self._count("rows:" + name, n)
+
+    def active_rows(self, name: str, active: torch.Tensor, times: int) -> None:
+        """The pass ``name`` weighed ``times`` x the sum of ``active`` (0/1
+        weights on the device) of its rows: kept on the device, unread."""
+        if self.enabled:
+            with self._lock:
+                c = self._device_counters.get("active_rows:" + name)
+                if c is None:
+                    c = self._device_counters["active_rows:" + name] = DeviceSum()
+                c.add(active.sum(), times)
+
     # ---- reading --------------------------------------------------------
     def snapshot(self) -> Dict:
         """Everything kept, resolved (one synchronisation where events are
@@ -467,7 +520,8 @@ class Tracer:
         with self._lock:
             updates = list(self._updates)
             others = list(self._others)
-            if (self._pending or any(r.ev1 is not None for r in others)) \
+            if (self._pending or any(r.ev1 is not None for r in others)
+                    or any(c.on_cuda() for c in self._device_counters.values())) \
                     and torch.cuda.is_initialized():
                 torch.cuda.synchronize()
             self._read_done(wait=True)
@@ -480,7 +534,8 @@ class Tracer:
                 "others": [r.as_dict() for r in others if r.t1],
                 "spans": {name: {k: s.as_dict() for k, s in st.items()}
                           for name, st in self._span_stats.items()},
-                "counters": {name: c.as_dict() for name, c in self._counters.items()},
+                "counters": {name: c.as_dict() for name, c in
+                             list(self._counters.items()) + list(self._device_counters.items())},
                 "launches": {f"{mod.rsplit('.', 1)[-1]}.{fn}": n
                              for (mod, fn), n in launch_counts().items()},
             }
@@ -493,6 +548,8 @@ in_update = TRACER.in_update
 graph_captured = TRACER.graph_captured
 graph_replayed = TRACER.graph_replayed
 widened = TRACER.widened
+rows = TRACER.rows
+active_rows = TRACER.active_rows
 snapshot = TRACER.snapshot
 reset = TRACER.reset
 enable = TRACER.enable

@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
+from madrona_rl_envs_playground_tpu_torch.envs import hanabi as t_hanabi
 from madrona_rl_envs_playground_tpu_torch.envs import overcooked as t_oc
 from madrona_rl_envs_playground_tpu_torch.envs import overcooked2 as t_oc2
 from madrona_rl_envs_playground_tpu_torch.train import mappo as tm
@@ -45,6 +46,13 @@ def _selfplay(seed=1):
                                     num_minibatches=2)
     return t_selfplay.SelfPlayPPO(t_oc.make("cramped_room", horizon=6), 3, cfg, seed=seed,
                                   device="cpu")
+
+
+def _hanabi_selfplay(seed=1):
+    cfg = t_selfplay.SelfPlayConfig(num_steps=6, hidden=16, num_layers=1, update_epochs=3,
+                                    num_minibatches=2)
+    return t_selfplay.SelfPlayPPO(t_hanabi.Env(**t_hanabi.CONFIGS["very_small"]), 3, cfg,
+                                  seed=seed, device="cpu")
 
 
 def _mappo():
@@ -546,6 +554,48 @@ def test_disable_records_nothing_and_leaves_outputs_equal(tracer):
     for a, b in zip(got_on, got_off):
         for k in a:
             assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_epoch_row_counters(tracer, masked):
+    """A self-play update adds the rows its epochs' towers compute
+    (``rows:epochs``) and, where the seats take turns, the rows its losses
+    weigh (``active_rows:epochs``: the trainable active slots), each times
+    the epochs; an env that never masks adds only the first."""
+    trainer = _hanabi_selfplay() if masked else _selfplay()
+    chunks = []
+    advantage = trainer._advantage
+
+    def keep(*args):
+        out = advantage(*args)
+        chunks.append(out[0])
+        return out
+
+    trainer._advantage = keep
+    for _ in range(2):
+        trainer.train_step()
+    cfg, M = trainer.cfg, trainer.num_envs * trainer.env.num_agents
+    counters = tracer.snapshot()["counters"]
+    assert counters["rows:epochs"] == {"count": 2, "sum": 2 * cfg.num_steps * M * cfg.update_epochs,
+                                       "min": cfg.num_steps * M * cfg.update_epochs,
+                                       "max": cfg.num_steps * M * cfg.update_epochs}
+    # the obs, and where the critic reads its own state obs that too
+    assert counters["widened:epochs"]["sum"] == 2 * (2 if masked else 1)
+    if not masked:
+        assert "active_rows:epochs" not in counters
+        return
+    active = sum(float(c["active"].sum()) for c in chunks) * cfg.update_epochs
+    assert 0 < active < counters["rows:epochs"]["sum"]
+    assert counters["active_rows:epochs"] == {"count": 2, "sum": active, "min": None,
+                                              "max": None}
+    tracing.disable()
+    try:
+        trainer.train_step()
+    finally:
+        tracing.enable()
+    assert tracer.snapshot()["counters"]["active_rows:epochs"]["count"] == 2
+    tracer.reset()
+    assert tracer.snapshot()["counters"] == {}
 
 
 def test_a_profiler_sees_the_spans_as_record_function_ranges(tracer):
